@@ -53,7 +53,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.multihost:
         raise NotImplementedError(
-            "--multihost is slice 4 of the port (ROADMAP.md, queue A item "
+            "--multihost is slice 5 of the port (ROADMAP.md, queue A item "
             "11); run it with the JAX package")
     if args.platform is not None:
         raise ValueError("--platform selects a JAX backend; use --device")

@@ -6,7 +6,12 @@
 //   _fused_spatial_tiled -> _kernel_body_tiled (128-row j-stripes for planes
 //   past the 12 MiB VMEM guard) and _kernel_body_tiled_noise_in;
 //   raw_noise_slabs -> _noise_kernel_body and
-//   raw_noise_blocks_tiled -> _noise_kernel_body_tiled (the raw stream).
+//   raw_noise_blocks_tiled -> _noise_kernel_body_tiled (the raw stream);
+// and the fused bodies of the TPU experiments:
+//   benchmarks/exp_two_kernel_pipeline.py _fused_body_noprng (iota source),
+//   _fused_body_dummy_in (a cycling 8 x 128 input added after the filter),
+//   benchmarks/exp_pipelined_kernel.py _kernel_pipelined (next slab's noise
+//   drawn before this slab is filtered).
 // It computes what they compute, not how: each block owns one kTileJ x kTileK
 // output tile of one (component, slab) and
 //   1. draws the tile's noise plus its 2*nfy x 2*nfz halo into shared memory
@@ -17,10 +22,11 @@
 //      out[j,k] = sum_d by[d] t[j+d,k], as f32 FMAs with the taps in shared
 //      memory: (2nf+1)(jn*kma + jma*kma) MACs per slab, where the TPU's dense
 //      Toeplitz GEMMs spend jn*kn*kma + jma*jn*kma.
-// Because j and k are both tiled for every plane, the TPU's full-slab/tiled
-// split, its VMEM guard and its silent XLA fallback have no counterpart: an nf
-// whose tile does not fit the shared memory is refused by the wrapper, with
-// the byte count.
+// The three phases live in filter_tile.cuh, shared with K4.  Because j and k
+// are both tiled for every plane, the TPU's full-slab/tiled split, its VMEM
+// guard and its silent XLA fallback have no counterpart: an nf whose tile
+// does not fit the shared memory is refused by the wrapper, with the byte
+// count.
 //
 // What bounds it: at 512x512, nf=8, one 1,040-slab three-component window
 // writes 3 * 1040 * 512 * 512 * 4 B = 3.27 GB of f32 output, about 1.0 ms at
@@ -36,194 +42,229 @@
 // per FMA, and those loads bound it; the Philox draw alone takes about
 // 1.5 ms there.
 //
-// Compile-time modes (template parameter):
-//   kPhiloxFiltered  -- Philox -> filtered slab (rows 1 and 2 of the kernel table)
-//   kNoiseInFiltered -- given noise -> filtered slab (the interpret-mode bodies)
-//   kPhiloxRaw       -- Philox -> raw noise field (rows 3 and 4)
+// Modes (run-time `mode`, each a template instantiation):
+//   kPhiloxFiltered  -- Philox -> filtered slab (rows 1 and 2 of the kernel
+//                       table); with `dummy` set, dummy[cs] (8 x 128) is added
+//                       to out[cs, :8, :128] after the filter (row 9)
+//   kNoiseInFiltered -- given f32 noise -> filtered slab (interpret bodies)
+//   kPhiloxRaw       -- Philox -> raw noise field, f32 or bf16 (rows 3, 4, 5)
+//   kIotaFiltered    -- iota field k*(cs+1)*2sqrt3/65536 -> filtered (row 9)
+//   kPipelined       -- Philox -> filtered with a persistent block per tile
+//                       column that draws slab i+1's tile into a second buffer
+//                       before it filters slab i (row 11); bit-identical to
+//                       kPhiloxFiltered
+// and bf16_taps (f32 or bf16 taps) for every filtering mode.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC (ops/_build.py); bound with ctypes (plain C entry points).
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
+//        -Xcompiler -fPIC, linked with the other csrc/*.cu into one shared
+//        library (ops/_build.py); bound with ctypes (plain C entry points).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "filter_tile.cuh"
 
 namespace {
 
-constexpr int kTileJ = 32;    // output rows (j) per block
-constexpr int kTileK = 64;    // output columns (k) per block; a multiple of 4
-constexpr int kThreads = 256;
-constexpr int kMaxGridZ = 65535;
+using namespace podfs;
 
-enum Mode : int { kPhiloxFiltered = 0, kNoiseInFiltered = 1, kPhiloxRaw = 2 };
+enum Mode : int {
+  kPhiloxFiltered = 0,
+  kNoiseInFiltered = 1,
+  kPhiloxRaw = 2,
+  kIotaFiltered = 3,
+  kPipelined = 4,
+};
 
 struct Params {
-  const float* noise;  // (C*S, jn, kn), kNoiseInFiltered only
-  float* out;          // (C*S, jma, kma) filtered, or (C*S, jn, kn) raw
-  const float* by;     // (2*nfy + 1,)
-  const float* bz;     // (2*nfz + 1,)
-  int nfy, nfz;
-  int jma, kma, jn, kn;
-  int num_cs;          // components * slabs
-  int num_slabs;
-  uint32_t t0;         // global index of slab 0
-  uint32_t key0, key1;
-  float scale;         // float32(2*sqrt(3)*2^-32)
+  TileParams tile;
+  void* out;            // (C*S, jma, kma) f32 filtered, or (C*S, jn, kn) raw
+  const float* dummy;   // (C*S, 8, 128) or null
+  const float* by;      // (2*nfy + 1,)
+  const float* bz;      // (2*nfz + 1,)
+  int num_cs;           // components * slabs
 };
 
-struct Words {
-  uint32_t w[4];
-};
+template <typename OutT>
+__device__ __forceinline__ OutT from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
-__device__ __forceinline__ Words philox4x32_10(uint32_t c0, uint32_t c1,
-                                               uint32_t c2, uint32_t c3,
-                                               uint32_t k0, uint32_t k1) {
+// one kTileJ x kTileK tile of the noise field itself; no halo
+template <typename OutT>
+__global__ void __launch_bounds__(kThreads) raw_kernel(const __grid_constant__ Params p) {
+  const TileParams& tp = p.tile;
+  constexpr int groups = kTileK / 4;
+  const int j0 = blockIdx.y * kTileJ;
+  const int k0 = blockIdx.x * kTileK;
+  for (int cs = blockIdx.z; cs < p.num_cs; cs += gridDim.z) {
+    const uint32_t comp = static_cast<uint32_t>(cs / tp.num_slabs);
+    const uint32_t slab = tp.t0 + static_cast<uint32_t>(cs % tp.num_slabs);
+    OutT* dst = static_cast<OutT*>(p.out) + static_cast<size_t>(cs) * tp.jn * tp.kn;
+    for (int i = threadIdx.x; i < kTileJ * groups; i += kThreads) {
+      const int j = j0 + i / groups;
+      const int kb = k0 + 4 * (i % groups);
+      if (j >= tp.jn || kb >= tp.kn) continue;
+      const Words w = philox4x32_10(static_cast<uint32_t>(kb >> 2),
+                                    static_cast<uint32_t>(j), slab, comp,
+                                    tp.key0, tp.key1);
+      OutT* row = dst + static_cast<size_t>(j) * tp.kn + kb;
 #pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t lo0 = 0xD2511F53u * c0;
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0);
-    const uint32_t lo1 = 0xCD9E8D57u * c2;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2);
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
+      for (int q = 0; q < 4; ++q)
+        if (kb + q < tp.kn)
+          row[q] = from_float<OutT>(word_to_uniform(w.w[q], tp.scale));
+    }
   }
-  return Words{{c0, c1, c2, c3}};
 }
 
-// int32 bitcast, exact-rounding conversion, one f32 multiply (never contracted)
-__device__ __forceinline__ float word_to_uniform(uint32_t w, float scale) {
-  return __fmul_rn(__int2float_rn(static_cast<int32_t>(w)), scale);
+__device__ __forceinline__ void load_taps(const Params& p, float* sby,
+                                          float* sbz) {
+  for (int i = threadIdx.x; i < 2 * p.tile.nfy + 1; i += kThreads) sby[i] = p.by[i];
+  for (int i = threadIdx.x; i < 2 * p.tile.nfz + 1; i += kThreads) sbz[i] = p.bz[i];
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(kThreads) fused_filter_kernel(const Params p) {
+// y-pass of one tile into the output (plus the dummy input, if any)
+__device__ __forceinline__ void store_tile(const Params& p, int cs, int j0,
+                                           int k0, const float* t,
+                                           const float* sby) {
+  const TileParams& tp = p.tile;
+  float* dst = static_cast<float*>(p.out) + static_cast<size_t>(cs) * tp.jma * tp.kma;
+  const float* dummy = p.dummy ? p.dummy + static_cast<size_t>(cs) * 8 * 128 : nullptr;
+  for (int i = threadIdx.x; i < kTileJ * kTileK; i += kThreads) {
+    const int r = i / kTileK;
+    const int c = i % kTileK;
+    const int j = j0 + r;
+    const int k = k0 + c;
+    if (j < tp.jma && k < tp.kma) {
+      float v = y_at(t, sby, tp.nfy, r, c);
+      if (dummy && j < 8 && k < 128) v += dummy[j * 128 + k];
+      dst[static_cast<size_t>(j) * tp.kma + k] = v;
+    }
+  }
+}
+
+template <int SRC, bool BF16>
+__global__ void __launch_bounds__(kThreads) filter_kernel(const __grid_constant__ Params p) {
   extern __shared__ float smem[];
-  const int tid = threadIdx.x;
-
-  if constexpr (MODE == kPhiloxRaw) {
-    // one kTileJ x kTileK tile of the noise field itself; no halo
-    constexpr int groups = kTileK / 4;
-    const int j0 = blockIdx.y * kTileJ;
-    const int k0 = blockIdx.x * kTileK;
-    for (int cs = blockIdx.z; cs < p.num_cs; cs += gridDim.z) {
-      const uint32_t comp = static_cast<uint32_t>(cs / p.num_slabs);
-      const uint32_t slab = p.t0 + static_cast<uint32_t>(cs % p.num_slabs);
-      float* dst = p.out + static_cast<size_t>(cs) * p.jn * p.kn;
-      for (int i = tid; i < kTileJ * groups; i += kThreads) {
-        const int j = j0 + i / groups;
-        const int kb = k0 + 4 * (i % groups);
-        if (j >= p.jn || kb >= p.kn) continue;
-        const Words w = philox4x32_10(static_cast<uint32_t>(kb >> 2),
-                                      static_cast<uint32_t>(j), slab, comp,
-                                      p.key0, p.key1);
-        float* row = dst + static_cast<size_t>(j) * p.kn + kb;
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (kb + q < p.kn) row[q] = word_to_uniform(w.w[q], p.scale);
-      }
-    }
-  } else {
-    const int hj = kTileJ + 2 * p.nfy;  // noise rows one tile reads
-    const int wk = kTileK + 2 * p.nfz;  // noise columns one tile reads
-    const int ty = 2 * p.nfy + 1;
-    const int tz = 2 * p.nfz + 1;
-    float* x = smem;                  // (hj, wk) noise tile + halo
-    float* t = x + hj * wk;           // (hj, kTileK) after the z-pass
-    float* sby = t + hj * kTileK;     // y taps
-    float* sbz = sby + ty;            // z taps
-    for (int i = tid; i < ty; i += kThreads) sby[i] = p.by[i];
-    for (int i = tid; i < tz; i += kThreads) sbz[i] = p.bz[i];
-
-    const int j0 = blockIdx.y * kTileJ;  // first output row == first noise row
-    const int k0 = blockIdx.x * kTileK;
-    for (int cs = blockIdx.z; cs < p.num_cs; cs += gridDim.z) {
-      __syncthreads();  // taps are loaded; the last slab's x and t are consumed
-
-      if constexpr (MODE == kPhiloxFiltered) {
-        const uint32_t comp = static_cast<uint32_t>(cs / p.num_slabs);
-        const uint32_t slab = p.t0 + static_cast<uint32_t>(cs % p.num_slabs);
-        const int groups = (wk + 3) / 4;  // k0 is a multiple of 4
-        for (int i = tid; i < hj * groups; i += kThreads) {
-          const int r = i / groups;
-          const int g = i - r * groups;
-          const Words w = philox4x32_10(static_cast<uint32_t>((k0 >> 2) + g),
-                                        static_cast<uint32_t>(j0 + r), slab,
-                                        comp, p.key0, p.key1);
-          float* row = x + r * wk + 4 * g;
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            if (4 * g + q < wk) row[q] = word_to_uniform(w.w[q], p.scale);
-        }
-      } else {
-        const float* src = p.noise + static_cast<size_t>(cs) * p.jn * p.kn;
-        for (int i = tid; i < hj * wk; i += kThreads) {
-          const int r = i / wk;
-          const int c = i - r * wk;
-          const int j = j0 + r;
-          const int k = k0 + c;
-          x[i] = (j < p.jn && k < p.kn) ? src[static_cast<size_t>(j) * p.kn + k]
-                                        : 0.f;
-        }
-      }
-      __syncthreads();
-
-      // z-pass over every row the y-pass needs
-      for (int i = tid; i < hj * kTileK; i += kThreads) {
-        const int r = i / kTileK;
-        const int c = i % kTileK;
-        const float* xr = x + r * wk + c;
-        float acc = 0.f;
-        for (int d = 0; d < tz; ++d) acc = fmaf(sbz[d], xr[d], acc);
-        t[i] = acc;
-      }
-      __syncthreads();
-
-      // y-pass; consecutive threads write consecutive k (coalesced)
-      float* dst = p.out + static_cast<size_t>(cs) * p.jma * p.kma;
-      for (int i = tid; i < kTileJ * kTileK; i += kThreads) {
-        const int r = i / kTileK;
-        const int c = i % kTileK;
-        const int j = j0 + r;
-        const int k = k0 + c;
-        if (j < p.jma && k < p.kma) {
-          const float* tc = t + r * kTileK + c;
-          float acc = 0.f;
-          for (int d = 0; d < ty; ++d) acc = fmaf(sby[d], tc[d * kTileK], acc);
-          dst[static_cast<size_t>(j) * p.kma + k] = acc;
-        }
-      }
-    }
+  const TileParams& tp = p.tile;
+  const int hj = kTileJ + 2 * tp.nfy;
+  float* x = smem;                   // (hj, wk) noise tile + halo
+  float* t = x + hj * (kTileK + 2 * tp.nfz);  // (hj, kTileK) after the z-pass
+  float* sby = t + hj * kTileK;      // y taps
+  float* sbz = sby + 2 * tp.nfy + 1; // z taps
+  load_taps(p, sby, sbz);
+  const int j0 = blockIdx.y * kTileJ;  // first output row == first noise row
+  const int k0 = blockIdx.x * kTileK;
+  for (int cs = blockIdx.z; cs < p.num_cs; cs += gridDim.z) {
+    __syncthreads();  // taps are loaded; the last slab's x and t are consumed
+    fill_tile<SRC, BF16>(tp, cs, j0, k0, x);
+    __syncthreads();
+    z_pass<BF16>(tp.nfy, tp.nfz, x, sbz, t);
+    __syncthreads();
+    store_tile(p, cs, j0, k0, t, sby);
   }
 }
 
-int smem_bytes(int nfy, int nfz) {
-  const int hj = kTileJ + 2 * nfy;
-  const int wk = kTileK + 2 * nfz;
-  return static_cast<int>(sizeof(float)) *
-         (hj * wk + hj * kTileK + (2 * nfy + 1) + (2 * nfz + 1));
+// Persistent over the slabs cs = blockIdx.z, blockIdx.z + gridDim.z, ...:
+// slab i+1's noise goes into the other buffer while slab i is filtered; the
+// draw has no dependence on the z-pass, so the warps of one barrier interval
+// interleave Philox and FMA work.
+template <bool BF16>
+__global__ void __launch_bounds__(kThreads) pipelined_kernel(const __grid_constant__ Params p) {
+  extern __shared__ float smem[];
+  const TileParams& tp = p.tile;
+  const int hj = kTileJ + 2 * tp.nfy;
+  const int xs = hj * (kTileK + 2 * tp.nfz);
+  float* xbuf[2] = {smem, smem + xs};
+  float* t = smem + 2 * xs;
+  float* sby = t + hj * kTileK;
+  float* sbz = sby + 2 * tp.nfy + 1;
+  load_taps(p, sby, sbz);
+  const int j0 = blockIdx.y * kTileJ;
+  const int k0 = blockIdx.x * kTileK;
+  int cur = 0;
+  if (static_cast<int>(blockIdx.z) < p.num_cs)
+    fill_tile<kSrcPhilox, BF16>(tp, blockIdx.z, j0, k0, xbuf[0]);
+  for (int cs = blockIdx.z; cs < p.num_cs; cs += gridDim.z) {
+    __syncthreads();  // x[cur] is drawn; the last slab's t is consumed
+    const int next = cs + static_cast<int>(gridDim.z);
+    if (next < p.num_cs) fill_tile<kSrcPhilox, BF16>(tp, next, j0, k0, xbuf[cur ^ 1]);
+    z_pass<BF16>(tp.nfy, tp.nfz, xbuf[cur], sbz, t);
+    __syncthreads();
+    store_tile(p, cs, j0, k0, t, sby);
+    cur ^= 1;
+  }
 }
 
-template <int MODE>
-cudaError_t launch(const Params& p, dim3 grid, int smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_filter_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  fused_filter_kernel<MODE><<<grid, kThreads, smem, stream>>>(p);
+int filter_smem_bytes(int nfy, int nfz, int buffers) {
+  const int extra_x = (buffers - 1) * (kTileJ + 2 * nfy) * (kTileK + 2 * nfz);
+  return static_cast<int>(sizeof(float)) *
+         (tile_smem_floats(nfy, nfz) + extra_x + (2 * nfy + 1) + (2 * nfz + 1));
+}
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, const Params& p, dim3 grid, int smem,
+                   cudaStream_t stream) {
+  if (smem > 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-int ceil_div(int a, int b) { return (a + b - 1) / b; }
+template <bool BF16>
+cudaError_t launch_filter(int mode, const Params& p, cudaStream_t s) {
+  const int kx = (p.tile.kma + kTileK - 1) / kTileK;
+  const int jy = (p.tile.jma + kTileJ - 1) / kTileJ;
+  const unsigned int gz =
+      static_cast<unsigned int>(p.num_cs < kMaxGrid ? p.num_cs : kMaxGrid);
+  const int smem1 = filter_smem_bytes(p.tile.nfy, p.tile.nfz, 1);
+  switch (mode) {
+    case kPhiloxFiltered:
+      return launch(filter_kernel<kSrcPhilox, BF16>, p, dim3(kx, jy, gz), smem1, s);
+    case kNoiseInFiltered:
+      return launch(filter_kernel<kSrcNoiseIn, BF16>, p, dim3(kx, jy, gz), smem1, s);
+    case kIotaFiltered:
+      return launch(filter_kernel<kSrcIota, BF16>, p, dim3(kx, jy, gz), smem1, s);
+    case kPipelined: {
+      // enough blocks per tile column to fill every SM once, no more
+      const int smem2 = filter_smem_bytes(p.tile.nfy, p.tile.nfz, 2);
+      auto kernel = pipelined_kernel<BF16>;
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem2);
+      if (err != cudaSuccess) return err;
+      int dev = 0, sms = 0, per_sm = 0;
+      if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+      if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                        dev)) != cudaSuccess)
+        return err;
+      if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, kernel, kThreads, smem2)) != cudaSuccess)
+        return err;
+      const int tiles = kx * jy;
+      int z = (sms * (per_sm > 0 ? per_sm : 1) + tiles - 1) / tiles;
+      if (z > p.num_cs) z = p.num_cs;
+      if (z > kMaxGrid) z = kMaxGrid;
+      if (z < 1) z = 1;
+      return launch(kernel, p, dim3(kx, jy, z), smem2, s);
+    }
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one filtering block asks for, in bytes.
-int fused_filter_smem_bytes(int nfy, int nfz) { return smem_bytes(nfy, nfz); }
+// Dynamic shared memory one filtering block asks for, in bytes (the
+// pipelined mode holds two noise buffers).
+int fused_filter_smem_bytes(int nfy, int nfz, int pipelined) {
+  return filter_smem_bytes(nfy, nfz, pipelined ? 2 : 1);
+}
 
 // Largest dynamic shared memory a block may opt in to on `device`, or -1.
 int fused_filter_smem_limit(int device) {
@@ -239,52 +280,44 @@ const char* fused_filter_error_string(int err) {
 }
 
 // Launches one mode on `stream`, on the caller's current device; returns the
-// cudaError_t of the launch.
-int fused_filter_launch(int mode, const float* noise, float* out,
+// cudaError_t of the launch.  `out_bf16` applies to kPhiloxRaw, `bf16_taps`
+// to the filtering modes (whose taps hold bf16 values when it is set).
+int fused_filter_launch(int mode, int bf16_taps, int out_bf16,
+                        const float* noise, void* out, const float* dummy,
                         const float* by, const float* bz, int nfy, int nfz,
                         int jma, int kma, int num_components, int num_slabs,
                         unsigned int t0, unsigned int key0, unsigned int key1,
-                        float scale, void* stream) {
-  cudaError_t err;
+                        float scale, float iota_scale, void* stream) {
   Params p;
-  p.noise = noise;
+  p.tile.noise = noise;
+  p.tile.nfy = nfy;
+  p.tile.nfz = nfz;
+  p.tile.jma = jma;
+  p.tile.kma = kma;
+  p.tile.jn = jma + 2 * nfy;
+  p.tile.kn = kma + 2 * nfz;
+  p.tile.num_slabs = num_slabs;
+  p.tile.t0 = t0;
+  p.tile.key0 = key0;
+  p.tile.key1 = key1;
+  p.tile.scale = scale;
+  p.tile.iota_scale = iota_scale;
   p.out = out;
+  p.dummy = dummy;
   p.by = by;
   p.bz = bz;
-  p.nfy = nfy;
-  p.nfz = nfz;
-  p.jma = jma;
-  p.kma = kma;
-  p.jn = jma + 2 * nfy;
-  p.kn = kma + 2 * nfz;
   p.num_cs = num_components * num_slabs;
-  p.num_slabs = num_slabs;
-  p.t0 = t0;
-  p.key0 = key0;
-  p.key1 = key1;
-  p.scale = scale;
-  const unsigned int gz =
-      static_cast<unsigned int>(p.num_cs < kMaxGridZ ? p.num_cs : kMaxGridZ);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kPhiloxFiltered:
-      err = launch<kPhiloxFiltered>(
-          p, dim3(ceil_div(kma, kTileK), ceil_div(jma, kTileJ), gz),
-          smem_bytes(nfy, nfz), s);
-      break;
-    case kNoiseInFiltered:
-      err = launch<kNoiseInFiltered>(
-          p, dim3(ceil_div(kma, kTileK), ceil_div(jma, kTileJ), gz),
-          smem_bytes(nfy, nfz), s);
-      break;
-    case kPhiloxRaw:
-      err = launch<kPhiloxRaw>(
-          p, dim3(ceil_div(p.kn, kTileK), ceil_div(p.jn, kTileJ), gz), 0, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
+  if (mode == kPhiloxRaw) {
+    const unsigned int gz =
+        static_cast<unsigned int>(p.num_cs < kMaxGrid ? p.num_cs : kMaxGrid);
+    const dim3 grid((p.tile.kn + kTileK - 1) / kTileK,
+                    (p.tile.jn + kTileJ - 1) / kTileJ, gz);
+    return static_cast<int>(out_bf16 ? launch(raw_kernel<__nv_bfloat16>, p, grid, 0, s)
+                                     : launch(raw_kernel<float>, p, grid, 0, s));
   }
-  return static_cast<int>(err);
+  return static_cast<int>(bf16_taps ? launch_filter<true>(mode, p, s)
+                                    : launch_filter<false>(mode, p, s));
 }
 
 }  // extern "C"

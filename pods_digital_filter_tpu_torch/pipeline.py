@@ -115,8 +115,10 @@ class InletGenerator(torch.nn.Module):
     pack -> rotate (-> minus ``center``).
 
     ``use_fused`` selects the fused CUDA kernel for noise + spatial filter
-    (float32 taps, Philox stream); otherwise the stages are torch products
-    in ``dtype`` on a ``torch.Generator`` stream."""
+    (Philox stream; bfloat16 taps when ``dtype`` is bfloat16, else float32,
+    as the original's ``matmul_dtype``, ``pipeline.py:164-165``); otherwise
+    the stages are torch products in ``dtype`` on a ``torch.Generator``
+    stream."""
 
     def __init__(self, *, seed: int, nsteps: int, jma: int, kma: int,
                  nfx: int, nfy: int, nfz: int, lnx: float, lny: float,
@@ -129,6 +131,8 @@ class InletGenerator(torch.nn.Module):
         self.jma, self.kma = int(jma), int(kma)
         self.nfx, self.nfy, self.nfz = int(nfx), int(nfy), int(nfz)
         self.dtype, self.use_fused = dtype, bool(use_fused)
+        self.matmul_dtype = (torch.bfloat16 if dtype == torch.bfloat16
+                             else torch.float32)
         tap_dtype = torch.float32 if use_fused else dtype
         for name, n, ln in (("bx", nfx, lnx), ("by", nfy, lny), ("bz", nfz, lnz)):
             self.register_buffer(
@@ -172,7 +176,8 @@ class InletGenerator(torch.nn.Module):
             if noise is not None:
                 noise = noise.to(torch.float32).contiguous()
             z = fused_filter.fused_spatial(self.seed, t0, num_slabs, self.jma,
-                                           self.kma, self.by, self.bz, 3, noise)
+                                           self.kma, self.by, self.bz, 3, noise,
+                                           self.matmul_dtype)
             y = filters.filter_temporal(z, self.bx, axis=-3).to(self.dtype)
         else:
             if noise is None:
@@ -211,11 +216,11 @@ def generate_snapshot_matrix(cfg: PipelineConfig, fields, filt, t0: int = 0,
 def _check_supported(cfg: PipelineConfig) -> None:
     if cfg.streaming_block:
         raise NotImplementedError(
-            "--streaming_block (out-of-core POD) is slice 2 of the port "
+            "--streaming_block (out-of-core POD) is slice 3 of the port "
             "(ROADMAP.md, queue A item 7); run it with the JAX package")
     if cfg.shard_time * cfg.shard_space > 1:
         raise NotImplementedError(
-            "--shard_time/--shard_space are slice 4 of the port (ROADMAP.md, "
+            "--shard_time/--shard_space are slice 5 of the port (ROADMAP.md, "
             "queue A item 11); run them with the JAX package")
     if cfg.checkpoint_dir != "none":
         raise NotImplementedError(
