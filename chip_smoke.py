@@ -10,7 +10,10 @@ Phases, one result line each; any failed check raises (exit code != 0):
 1. the card (``nvidia-smi`` name and power limit) and the software versions;
 2. build the kernels K1-K4 (csrc/*.cu, one nvcc per source, in parallel)
    from the checkout's sources, with each kernel's registers and spills
-   (``-Xptxas -v``) and the wgmma (HGMMA) count of K2's bf16-tap kernels;
+   (``-Xptxas -v``), the wgmma (HGMMA) count of K2's bf16-tap kernels, the
+   static SASS counts of K1 and K4 (shared loads per FFMA, multiplies) and
+   K1's strip step and K4's tile with their shared memory and the blocks
+   an SM holds, as the card reports them;
 3. K1 against its plain PyTorch version on the card, at the shapes the main
    path gives it: the raw Philox stream bit for bit, the filtered slabs
    (atol 1e-5), the noise-in mode, window independence, stream statistics,
@@ -37,7 +40,13 @@ Phases, one result line each; any failed check raises (exit code != 0):
    split K1 raw -> K2 against K1 within ``bf16_tap_bound`` with at most 1 %
    of elements off by more than 1e-5 (they sum in another order), K2's f32
    taps shown to miss that share; K4 against K1 and the plain FIR (1e-5);
-   ragged shapes for every kernel, K3 in both output types;
+   ragged shapes for every kernel, K3 in both output types; K1 timed at a
+   1024 x 1024 window (row 2: 3 x 260 slabs, the main window's bytes); K1
+   in every filtering mode and K4, f32 and bf16 taps, on shapes ragged
+   against K1's 128 x 32 strip steps and K4's 32 x 32 tiles, with nfy !=
+   nfz (nfx != nfy), nf 1 and the largest nf each takes (1e-5; pipelined
+   == K1 and K4 noise-in == Philox bit for bit), and one nf more refused
+   with the byte count;
 7. the main path of phase 4 with ``--dtype bfloat16``: K1 launched, its
    output made with bf16 taps (snapshots regenerated on the host by the
    port's generator with bf16 taps agree with the run's in all but 1 % of
@@ -76,9 +85,14 @@ def cuda_ms(fn, sync, reps=1):
     ``reps`` calls in a row, per call.  The card first spins for about 1 ms,
     so that the host has queued the calls' kernels before the start event
     fires: the time is the card's, without the host's launch overhead
-    (which would otherwise dominate kernels of 0.1 ms)."""
+    (which would otherwise dominate kernels of 0.1 ms).  An untimed call
+    comes first, so that the caching allocator already holds the blocks
+    the timed calls ask for (a 3.27 GB output that it has to map anew
+    stalls the card for tens of ms)."""
     import torch
 
+    fn()
+    sync()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(2_000_000)
@@ -127,19 +141,41 @@ def phase_build():
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(info.path)],
                           capture_output=True, text=True, check=True).stdout
-    counts, fn = {}, ""
+    counts, fn, mine = {}, "", []
+    ops = {name: {} for name in SASS_KERNELS}
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-        elif "HGMMA" in line and "gemm_bf16_kernel" in fn:
+            mine = [n for n, pat in SASS_KERNELS.items() if pat in fn]
+            continue
+        if "HGMMA" in line and "gemm_bf16_kernel" in fn:
             key = "gemm_bf16_kernel<" + ("bf16" if "nv_bfloat16" in fn else
                                          "float") + ">"
             counts[key] = counts.get(key, 0) + 1
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                      line)
+        if m and mine:
+            op = m.group(1)
+            op = "LDS" + (op[3:] if op.startswith("LDS.") else ".32") \
+                if op.split(".")[0] == "LDS" else op.split(".")[0] + (
+                    ".WIDE" if ".WIDE" in op else ".HI" if ".HI" in op else "")
+            c = ops[mine[0]]
+            c[op] = c.get(op, 0) + 1
+            c["all"] = c.get("all", 0) + 1
     print(f"    K2 bf16 taps, HGMMA (wgmma) instructions in the SASS: "
           + json.dumps(counts))
     check(len(counts) == 2 and min(counts.values()) > 0,
           "K2's bf16-tap kernels issue wgmma")
+    for name, c in ops.items():
+        lds = sum(v for k, v in c.items() if k.startswith("LDS"))
+        keep = {k: c.get(k, 0) for k in ("all", "FFMA", "LDS.32", "LDS.64",
+                                        "LDS.128", "STS", "IMAD.WIDE",
+                                        "IMAD.HI", "IMAD", "LOP3", "I2F",
+                                        "F2F", "BAR")}
+        print(f"    {name}, static SASS: shared loads per FFMA "
+              f"{lds / max(1, c.get('FFMA', 0)):.3f}; " + json.dumps(keep))
+        check(c.get("all", 0) > 0, f"{name} found in the SASS")
 
 
 def phase_kernel(dev):
@@ -366,8 +402,18 @@ def phase_main(label, extra, outdir, extra_check=None):
     return launches
 
 
+#: kernels whose static SASS phase 2 counts (mangled-name fragments): K1 and
+#: K4 as the main path and the experiments run them, K1's raw mode
+SASS_KERNELS = {
+    "K1 f32 taps, nf 8": "walk_kernelILi0ELb0ELi8ELi8ELb0E",
+    "K1 bf16 taps, nf 8": "walk_kernelILi0ELb1ELi8ELi8ELb0E",
+    "K1 any nf": "walk_kernelILi0ELb0ELi0ELi0ELb0E",
+    "K1 raw bf16": "raw_kernelI13__nv_bfloat16E",
+    "K4 f32 taps, nf 8": "fused_temporal_kernelILi0ELb0ELi8ELi8ELi8E",
+}
 EXP = dict(nf=8, jma=512, kma=512, slabs=80)       # the experiments' shape
 MAIN = dict(nf=8, jma=512, kma=512, slabs=1040)     # the main path's shape
+BIG = dict(nf=8, jma=1024, kma=1024, slabs=260)     # row 2: the same bytes
 #: bf16-tap results summed in another order: the share of elements that may
 #: differ by more than 1e-5 (tests/test_torch_pipeline.py's rule)
 SHARE_LIMIT = 0.01
@@ -505,6 +551,17 @@ def phase_decomposition(dev):
     print(f"phase 6 K1 f32 taps vs the bf16-tap plain version: max diff "
           f"{err:.3e}, {share:.3f} of the elements off by more than 1e-5")
     check(err > 1e-5 and share > SHARE_LIMIT, "bf16 taps change K1's output")
+    del k, p
+
+    # row 2 (the original's tiled kernel, for planes past its VMEM guard): K1
+    # at a 1024^2 window of 3 x 260 slabs, the main window's 3.27 GB
+    b, jn, kn = taps(BIG)
+    a = (seed, 0, BIG["slabs"], BIG["jma"], BIG["kma"], b, b, 3)
+    ms, pms, k, p, _ = turns(lambda: ff.fused_spatial(*a),
+                             lambda: ff.fused_spatial_plain(*a))
+    row("K1 f32 1024^2, 260 x 3", max_err(k, p), ms, pms, 1e-5, "",
+        bound(out_bytes(BIG, BIG["slabs"]),
+              filter_work(BIG["slabs"], BIG["jma"], BIG["kma"], 8)))
     del k, p
 
     b, jn, kn = taps(EXP)
@@ -734,8 +791,155 @@ def phase_decomposition(dev):
     print("phase 6 K3 at 66 x 136 and 66 x 134 (every probe, bf16 and f32; "
           "store2d at kma 68 and 67): bit for bit")
 
+    check_walk(dev, seed)
     print("phase 6 table " + json.dumps(table))
     return record
+
+
+def geometry(dev):
+    """K1's strip step and K4's tile at the main path's nf and a few others:
+    width x rows, shared memory per block and blocks an SM holds (the
+    card's occupancy report); the registers are phase 2's ptxas lines."""
+    import ctypes
+
+    import torch
+
+    from pods_digital_filter_tpu_torch.ops import (_build, fused_filter as ff,
+                                                   fused_temporal as ft)
+
+    lib, _ = _build.load()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    limit = lib.fused_filter_smem_limit(dev.index)
+    lines = []
+    for nfy, nfz in ((8, 8), (6, 6), (3, 5)):
+        for mode, name in ((ff._PHILOX_FILTERED, "K1"),
+                           (ff._PIPELINED, "K1 pipelined")):
+            ks, ch, need = ff.walk_tile(nfy, nfz, mode == ff._PIPELINED,
+                                        lib.fused_filter_smem_bytes, limit)
+            for bf16 in (0, 1):
+                slots = ctypes.c_int(0)
+                err = lib.fused_filter_launch(
+                    mode, bf16, 0, None, None, None, None, None, nfy, nfz,
+                    512, 512, 3, 1040, ks, ch, 0, 0, 0, 1.0, 1.0, None,
+                    ctypes.byref(slots))
+                _build.check_launch(err, "occupancy query")
+                lines.append(f"{name} nf ({nfy},{nfz}) {'bf16' if bf16 else 'f32'}"
+                             f" taps: {ks} x {ch} step, {need} B, "
+                             f"{slots.value / sms:g} blocks/SM")
+    for nf in ((8, 8, 8), (2, 1, 3)):
+        ks, ch, need = ft.temporal_tile(*nf, lib.fused_temporal_smem_bytes, limit)
+        slots = lib.fused_temporal_slots(*nf, ks, ch, 0, 0, dev.index)
+        lines.append(f"K4 nf {nf}: {ch} x {ks} tile, {need} B, "
+                     f"{slots / sms:g} blocks/SM")
+    print("phase 2 geometry: " + "; ".join(lines))
+
+
+def largest_nf(accepts, start=1):
+    """The largest n with accepts(n) true, accepts(start) being true and
+    monotone in n."""
+    hi = start
+    while accepts(hi * 2):
+        hi *= 2
+    lo, hi = hi, hi * 2
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if accepts(mid) else (lo, mid)
+    return lo
+
+
+def check_walk(dev, seed):
+    """K1 (every filtering mode, f32 and bf16 taps) and K4 on shapes ragged
+    against K1's strip steps (128 x 32 at small nf) and K4's 32 x 32 tiles,
+    with nfy != nfz (nfx != nfy for K4), nf = 1 and the largest nf each
+    accepts; each at 1e-5 of its plain version, pipelined == K1 and K4's
+    noise-in == its Philox mode bit for bit; one nf past the largest is
+    refused with the byte count."""
+    import torch
+
+    from pods_digital_filter_tpu_torch.ops import (_build, filters,
+                                                   fused_filter as ff,
+                                                   fused_temporal as ft, philox)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    lib, _ = _build.load()
+    limit = lib.fused_filter_smem_limit(dev.index)
+    fits = lambda pipe: lambda n: _fits(lambda: ff.walk_tile(
+        n, n, pipe, lib.fused_filter_smem_bytes, limit))
+    nf_max, nf_pipe = largest_nf(fits(False)), largest_nf(fits(True))
+    nfx_max = largest_nf(lambda n: _fits(lambda: ft.temporal_tile(
+        n, 2, 2, lib.fused_temporal_smem_bytes, limit)))
+    for fn, args in ((ff.walk_tile, (nf_max + 1, nf_max + 1, False,
+                                     lib.fused_filter_smem_bytes, limit)),
+                     (ft.temporal_tile, (nfx_max + 1, 2, 2,
+                                         lib.fused_temporal_smem_bytes, limit))):
+        try:
+            fn(*args)
+            check(False, f"{fn.__name__} refuses one past its largest nf")
+        except ValueError as e:
+            check("bytes of shared memory" in str(e), "refusal names the bytes")
+    print(f"phase 6 walk: largest nf K1 accepts {nf_max} (pipelined "
+          f"{nf_pipe}), K4's largest nfx {nfx_max} (nfy = nfz = 2); one "
+          f"more is refused with the byte count")
+    g = lambda nf: filters.gaussian_fir_coeffs(nf, max(nf, 1) / 2.0, f32, dev)
+    cases = [(45, 259, 3, 5, 3), (70, 130, 1, 1, 2), (33, 131, 2, 7, 2),
+             (100, 300, 8, 8, 2), (21, 140, 6, 6, 2), (9, 10, 13, 2, 2),
+             (20, 24, nf_max, nf_max, 1), (16, 16, nf_pipe, nf_pipe, 1)]
+    worst = {}
+    for (jma, kma, nfy, nfz, S) in cases:
+        by, bz = g(nfy), g(nfz)
+        jn, kn = jma + 2 * nfy, kma + 2 * nfz
+        noise = philox.raw_noise(seed, 2, S, jn, kn, 2, dev)
+        dummy = torch.randn((2 * S, 8, 128), device=dev)
+        for md, name in ((f32, "f32"), (bf16, "bf16")):
+            a = (seed, 2, S, jma, kma, by, bz, 2)
+            plain = ff.fused_spatial_plain(*a, matmul_dtype=md)
+            k1 = ff.fused_spatial(*a, matmul_dtype=md)
+            errs = {"philox": max_err(k1, plain),
+                    "noise-in": max_err(ff.fused_spatial(
+                        *a, noise=noise, matmul_dtype=md), plain),
+                    "iota": max_err(
+                        ff.fused_spatial_iota(S, jma, kma, by, bz, 2, md),
+                        ff.fused_spatial_iota_plain(S, jma, kma, by, bz, 2, md))}
+            if nfy <= nf_pipe and nfz <= nf_pipe:
+                pipe = ff.fused_spatial_pipelined(*a, matmul_dtype=md)
+                check(torch.equal(pipe, k1),
+                      f"pipelined == K1 at {jma}x{kma} nf ({nfy},{nfz}) {name}")
+            if jma >= 8 and kma >= 128:
+                errs["dummy-in"] = max_err(
+                    ff.fused_spatial_dummy_in(*a[:-1], dummy, 2, md),
+                    ff.fused_spatial_dummy_in_plain(*a[:-1], dummy, 2, md))
+            for mode, e in errs.items():
+                key = f"K1 {mode} {name}"
+                worst[key] = max(worst.get(key, 0.0), e)
+                check(e <= 1e-5, f"{key} at {jma}x{kma} nf ({nfy},{nfz})")
+        del noise, dummy
+    for (jma, kma, nfx, nfy, nfz, n) in ((45, 67, 2, 3, 5, 3), (70, 33, 1, 1, 1, 4),
+                                         (32, 96, 3, 1, 2, 2), (40, 36, 8, 8, 8, 3),
+                                         (17, 12, nfx_max, 2, 2, 2)):
+        bx, by, bz = g(nfx), g(nfy), g(nfz)
+        noise = philox.raw_noise(seed, 2, n + 2 * nfx, jma + 2 * nfy,
+                                 kma + 2 * nfz, 2, dev)
+        for md, name in ((f32, "f32"), (bf16, "bf16")):
+            ka = (seed, 2, n, jma, kma, bx, by, bz, 2)
+            k4 = ft.fused_temporal(*ka, matmul_dtype=md)
+            e = max_err(k4, ft.fused_temporal_plain(*ka, matmul_dtype=md))
+            check(torch.equal(ft.fused_temporal(*ka, noise=noise, matmul_dtype=md),
+                              k4), f"K4 noise-in == Philox at nf ({nfx},{nfy},{nfz})")
+            key = f"K4 {name}"
+            worst[key] = max(worst.get(key, 0.0), e)
+            check(e <= 1e-5, f"{key} at {jma}x{kma} nf ({nfx},{nfy},{nfz})")
+    print("phase 6 walk: ragged shapes "
+          + ", ".join(f"{c[0]}x{c[1]} nf ({c[2]},{c[3]})" for c in cases)
+          + "; worst max |kernel - plain| " + json.dumps(worst)
+          + "; pipelined == K1 and K4 noise-in == Philox bit for bit")
+
+
+def _fits(fn):
+    try:
+        fn()
+        return True
+    except ValueError:
+        return False
 
 
 def phase_experiments():
@@ -805,6 +1009,7 @@ def main():
     dev = resolve_device("cuda:0")
     phase_card()
     phase_build()
+    geometry(dev)
     worst, ms, plain_ms = phase_kernel(dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_main("4 main path --pallas", ["--pallas"],

@@ -81,40 +81,6 @@ struct Params {
   float scale16, scale32;
 };
 
-// values [0, n) of v at element i of out: 16-byte stores when the 8 values
-// are whole and start on a 16-byte boundary, else one store each
-template <typename OutT>
-__device__ __forceinline__ void put8(void* out, size_t i, const float (&v)[8], int n);
-template <>
-__device__ __forceinline__ void put8<float>(void* out, size_t i, const float (&v)[8], int n) {
-  float* o = static_cast<float*>(out) + i;
-  if (n == 8 && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
-    reinterpret_cast<float4*>(o)[0] = make_float4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<float4*>(o)[1] = make_float4(v[4], v[5], v[6], v[7]);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      if (e < n) o[e] = v[e];
-  }
-}
-template <>
-__device__ __forceinline__ void put8<__nv_bfloat16>(void* out, size_t i, const float (&v)[8], int n) {
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out) + i;
-  if (n == 8 && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
-    uint32_t u[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-      u[e] = *reinterpret_cast<const uint32_t*>(&h);
-    }
-    *reinterpret_cast<uint4*>(o) = make_uint4(u[0], u[1], u[2], u[3]);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      if (e < n) o[e] = __float2bfloat16_rn(v[e]);
-  }
-}
-
 __device__ __forceinline__ int32_t lo_half(uint32_t w) {
   return static_cast<int32_t>(w & 0xFFFFu) - 32768;
 }

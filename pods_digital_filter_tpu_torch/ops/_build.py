@@ -108,7 +108,7 @@ def build() -> BuildInfo:
 def _bind(lib: ctypes.CDLL) -> None:
     c_int, c_uint, c_void_p = ctypes.c_int, ctypes.c_uint, ctypes.c_void_p
     c_float = ctypes.c_float
-    lib.fused_filter_smem_bytes.argtypes = [c_int, c_int, c_int]
+    lib.fused_filter_smem_bytes.argtypes = [c_int] * 5
     lib.fused_filter_smem_bytes.restype = c_int
     lib.fused_filter_smem_limit.argtypes = [c_int]
     lib.fused_filter_smem_limit.restype = c_int
@@ -120,8 +120,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         c_void_p, c_void_p,                      # by, bz
         c_int, c_int, c_int, c_int,              # nfy, nfz, jma, kma
         c_int, c_int,                            # components, slabs
+        c_int, c_int,                            # strip width, step rows
         c_uint, c_uint, c_uint,                  # t0, key0, key1
         c_float, c_float, c_void_p,              # scale, iota scale, stream
+        ctypes.POINTER(c_int),                   # slots (a query) or None
     ]
     lib.fused_filter_launch.restype = c_int
     lib.toeplitz_gemm_smem_bytes.argtypes = [c_int, c_int]
@@ -142,13 +144,16 @@ def _bind(lib: ctypes.CDLL) -> None:
         c_float, c_float, c_void_p,              # scale16, scale32, stream
     ]
     lib.noise_probe_launch.restype = c_int
-    lib.fused_temporal_smem_bytes.argtypes = [c_int, c_int, c_int]
+    lib.fused_temporal_smem_bytes.argtypes = [c_int] * 5
     lib.fused_temporal_smem_bytes.restype = c_int
+    lib.fused_temporal_slots.argtypes = [c_int] * 8
+    lib.fused_temporal_slots.restype = c_int
     lib.fused_temporal_launch.argtypes = [
         c_int, c_void_p, c_void_p,               # bf16 taps, noise, out
         c_void_p, c_void_p, c_void_p,            # bx, by, bz
         c_int, c_int, c_int, c_int, c_int,       # nfx, nfy, nfz, jma, kma
         c_int, c_int, c_int,                     # components, nsteps, chunk
+        c_int, c_int,                            # tile width, tile rows
         c_uint, c_uint, c_uint,                  # t0, key0, key1
         c_float, c_void_p,                       # scale, stream
     ]

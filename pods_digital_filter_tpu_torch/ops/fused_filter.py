@@ -55,20 +55,42 @@ def _check_matmul_dtype(matmul_dtype) -> bool:
     return matmul_dtype == torch.bfloat16
 
 
+#: strip width x step rows of K1's walk (csrc/fused_filter.cu), in order of
+#: preference: the first whose shared memory fits the card's per-block limit
+#: is taken, so a large nf takes a smaller step instead of being refused
+WALK_TILES = ((128, 32), (128, 16), (64, 32), (64, 16), (64, 8), (32, 8))
+
+
+def walk_tile(nfy: int, nfz: int, pipelined: bool, smem_bytes, limit: int):
+    """``(strip width, step rows, bytes)`` of K1's walk for half-widths
+    ``nfy``/``nfz``: the first of :data:`WALK_TILES` whose shared memory
+    (``smem_bytes(nfy, nfz, ks, ch, pipelined)``, the kernel's own count)
+    is within ``limit``; raises ``ValueError`` with the byte count when
+    none is."""
+    for ks, ch in WALK_TILES:
+        need = smem_bytes(nfy, nfz, ks, ch, int(pipelined))
+        if need <= limit:
+            return ks, ch, need
+    raise ValueError(
+        f"fused filter: nfy={nfy}, nfz={nfz} need {need} bytes of shared "
+        f"memory even for a {ks} x {ch} strip step; the card allows {limit} "
+        f"per block")
+
+
 def _launch(mode, out, noise, by, bz, nfy, nfz, jma, kma, num_components,
             num_slabs, seed, t0, bf16_taps=False, dummy=None):
     global LAUNCHES
     from pods_digital_filter_tpu_torch.ops import _build
 
     lib, _ = _build.load()
-    dev = out.device.index
-    if mode != _PHILOX_RAW:
-        need = lib.fused_filter_smem_bytes(nfy, nfz, int(mode == _PIPELINED))
-        limit = lib.fused_filter_smem_limit(dev)
-        if need > limit:
-            raise ValueError(
-                f"fused filter: a tile with nfy={nfy}, nfz={nfz} needs {need} "
-                f"bytes of shared memory; the card allows {limit} per block")
+    ks = ch = 0
+    if mode == _PHILOX_RAW:
+        if out.numel() >= 2 ** 32:
+            raise ValueError("fused filter: a raw field must hold < 2^32 values")
+    else:
+        ks, ch, _ = walk_tile(nfy, nfz, mode == _PIPELINED,
+                              lib.fused_filter_smem_bytes,
+                              lib.fused_filter_smem_limit(out.device.index))
     if num_components * num_slabs >= 2 ** 31:
         raise ValueError("fused filter: components x slabs must be < 2^31")
     ptr = lambda x: None if x is None else x.data_ptr()
@@ -76,10 +98,10 @@ def _launch(mode, out, noise, by, bz, nfy, nfz, jma, kma, num_components,
         err = lib.fused_filter_launch(
             mode, int(bf16_taps), int(out.dtype == torch.bfloat16), ptr(noise),
             out.data_ptr(), ptr(dummy), ptr(by), ptr(bz),
-            nfy, nfz, jma, kma, num_components, num_slabs,
+            nfy, nfz, jma, kma, num_components, num_slabs, ks, ch,
             t0 & philox.MASK32, seed & philox.MASK32,
             (seed >> 32) & philox.MASK32, philox.SCALE, IOTA_SCALE,
-            torch.cuda.current_stream(out.device).cuda_stream)
+            torch.cuda.current_stream(out.device).cuda_stream, None)
     _build.check_launch(err, f"fused filter kernel (mode {mode})")
     LAUNCHES += 1
 
@@ -148,21 +170,33 @@ def fused_spatial(seed: int, t0: int, num_slabs: int, jma: int, kma: int,
                      num_components, matmul_dtype, noise=noise)
 
 
+def _banded_sum(x: torch.Tensor, taps: torch.Tensor, n: int,
+                dim: int) -> torch.Tensor:
+    """``sum_d taps[d] * x.narrow(dim, d, n)``, added in ascending ``d``
+    from 0 in float32."""
+    acc = torch.zeros_like(x.narrow(dim, 0, n))
+    for d in range(taps.shape[0]):
+        acc = acc + taps[d] * x.narrow(dim, d, n)
+    return acc
+
+
 def filter_taps(noise: torch.Tensor, by: torch.Tensor, bz: torch.Tensor,
                 jma: int, kma: int, matmul_dtype=torch.float32) -> torch.Tensor:
     """Plain separable filter of float32 ``noise`` with K1's arithmetic:
     :func:`filters.filter_spatial` in float32, or with bfloat16 taps the
-    two products on bf16-rounded noise and taps with the intermediate
+    two banded sums on bf16-rounded noise and taps with the intermediate
     rounded to bf16 (``.to(bfloat16)`` rounds to nearest even, as the
-    kernel and ``astype`` do)."""
+    kernel and ``astype`` do).  The bf16 sums are added in ascending tap
+    order: a bf16 x bf16 product is exact in float32, so that is K1's fmaf
+    chain bit for bit, where a matrix product's order (which the library
+    picks by shape) may round an element of t to its neighbouring bf16
+    value."""
     if not _check_matmul_dtype(matmul_dtype):
         return filters.filter_spatial(noise, by.to(torch.float32),
                                       bz.to(torch.float32), jma, kma)
     r = lambda x: x.to(torch.bfloat16).to(torch.float32)
-    By = filters.toeplitz_band(r(by), jma)
-    Bz = filters.toeplitz_band(r(bz), kma)
-    t = r(torch.matmul(r(noise), Bz.T))
-    return torch.matmul(By, t)
+    t = r(_banded_sum(r(noise), r(bz), kma, -1))
+    return _banded_sum(t, r(by), jma, -2)
 
 
 def bf16_tap_bound(by: torch.Tensor, bz: torch.Tensor,

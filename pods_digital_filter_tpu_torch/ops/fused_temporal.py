@@ -27,13 +27,44 @@ from pods_digital_filter_tpu_torch.ops import filters, fused_filter, philox
 LAUNCHES = 0
 
 
-def _chunk(nsteps: int, nfx: int, blocks_per_chunk: int, dev) -> int:
-    """Output steps per block: enough chunks that the blocks fill every SM
-    twice, but no chunk under 8 nfx steps (each recomputes 2 nfx warm-up
-    slabs)."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    chunks = max(1, -(-2 * sms // blocks_per_chunk))
-    return max(-(-nsteps // chunks), 8 * nfx, 1)
+#: output tile (width, rows) of a K4 block (csrc/fused_temporal.cu), in
+#: order of preference: the first whose ring and passes fit the card's
+#: shared memory per block is taken
+TEMPORAL_TILES = ((32, 32), (32, 16), (32, 8))
+
+
+def temporal_tile(nfx: int, nfy: int, nfz: int, smem_bytes, limit: int):
+    """``(tile width, tile rows, bytes)`` of a K4 block: the first of
+    :data:`TEMPORAL_TILES` whose shared memory (``smem_bytes(nfx, nfy, nfz,
+    ks, ch)``, the kernel's own count) is within ``limit``; raises
+    ``ValueError`` with the byte count when none is."""
+    for ks, ch in TEMPORAL_TILES:
+        need = smem_bytes(nfx, nfy, nfz, ks, ch)
+        if need <= limit:
+            return ks, ch, need
+    raise ValueError(
+        f"fused temporal: nfx={nfx}, nfy={nfy}, nfz={nfz} need {need} bytes "
+        f"of shared memory even for a {ch} x {ks} tile; the card allows "
+        f"{limit} per block")
+
+
+def _chunk(nsteps: int, nfx: int, blocks_per_chunk: int, slots: int,
+           max_chunks: int = 65535) -> int:
+    """Output steps per block.  With ``c`` chunks the ``blocks_per_chunk *
+    c`` blocks run in ``ceil(blocks_per_chunk * c / slots)`` waves over the
+    card's ``slots`` (SMs x blocks an SM holds, as the card reports), and
+    each walks ``ceil(nsteps / c) + 2 nfx`` slabs (its chunk and the ring's
+    warm-up): the chunk of the ``c <= max_chunks`` that minimises their
+    product, the fewest chunks on a tie."""
+    best = None
+    for c in range(1, min(nsteps, max_chunks) + 1):
+        chunk = -(-nsteps // c)
+        if -(-nsteps // chunk) != c:        # the same chunk as a smaller c
+            continue
+        cost = -(-blocks_per_chunk * c // slots) * (chunk + 2 * nfx)
+        if best is None or cost < best[0]:
+            best = (cost, chunk)
+    return best[1]
 
 
 def fused_temporal(seed: int, t0: int, nsteps: int, jma: int, kma: int,
@@ -63,16 +94,16 @@ def fused_temporal(seed: int, t0: int, nsteps: int, jma: int, kma: int,
     from pods_digital_filter_tpu_torch.ops import _build
 
     lib, _ = _build.load()
-    need = lib.fused_temporal_smem_bytes(nfx, nfy, nfz)
-    limit = lib.fused_filter_smem_limit(dev.index)
-    if need > limit:
-        raise ValueError(
-            f"fused temporal: nfx={nfx}, nfy={nfy}, nfz={nfz} need {need} "
-            f"bytes of shared memory; the card allows {limit} per block")
-    tiles = -(-jma // 32) * -(-kma // 64)
-    chunk = _chunk(nsteps, nfx, tiles * num_components, dev)
-    if num_components * -(-nsteps // chunk) > 65535:
-        raise ValueError("fused temporal: too many (component, chunk) blocks")
+    ks, ch, _ = temporal_tile(nfx, nfy, nfz, lib.fused_temporal_smem_bytes,
+                              lib.fused_filter_smem_limit(dev.index))
+    with torch.cuda.device(dev):
+        slots = lib.fused_temporal_slots(nfx, nfy, nfz, ks, ch,
+                                         int(noise is not None), int(bf16),
+                                         dev.index)
+    _build.check_launch(max(0, -slots), "fused temporal kernel (occupancy)")
+    tiles = -(-jma // ch) * -(-kma // ks)
+    chunk = _chunk(nsteps, nfx, tiles * num_components, slots,
+                   65535 // num_components)
     out = torch.empty((num_components, nsteps, jma, kma), dtype=torch.float32,
                       device=dev)
     taps = [fused_filter._tap_values(b, matmul_dtype) for b in (by, bz)]
@@ -82,7 +113,7 @@ def fused_temporal(seed: int, t0: int, nsteps: int, jma: int, kma: int,
             int(bf16), None if noise is None else noise.data_ptr(),
             out.data_ptr(), bx.data_ptr(), taps[0].data_ptr(),
             taps[1].data_ptr(), nfx, nfy, nfz, jma, kma, num_components,
-            nsteps, chunk, t0 & philox.MASK32, seed & philox.MASK32,
+            nsteps, chunk, ks, ch, t0 & philox.MASK32, seed & philox.MASK32,
             (seed >> 32) & philox.MASK32, philox.SCALE,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(err, "fused temporal kernel")
