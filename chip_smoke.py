@@ -71,7 +71,27 @@ Phases, one result line each; any failed check raises (exit code != 0):
     mean profile, the valid count and K1's 76 launches; then, on the
     rebuilt flagship Gram, the port's Lanczos (full spectrum, top 20)
     timed beside cuSOLVER's float64 ``eigvalsh``/``eigh`` (in turns, twice
-    each), with the spectra's top-20 differences and valid counts.
+    each), with the spectra's top-20 differences and valid counts;
+11. slice 4 on phase 4's model and result (run before phase 10):
+    (a) ``python -m pods_digital_filter_tpu_torch.replay`` on phase 4's
+    model directory (64 steps, f64 on the card) against the port's C
+    replayer (1e-9) and the in-memory model (1e-6), with the load, replay
+    and write seconds; (b) replay throughput at
+    ``benchmarks/bench_replay.py``'s size (32,768 points, 50 modes, 21
+    coefficients, 512 steps): ``batch_device`` in f64 and f32 beside its
+    bound, ``batch`` with the copy to the host and the C replayer;
+    (c) ``compress_snapshot_matrix`` on phase 4's snapshots (3.2 GB, f32)
+    against phase 4's energies (1e-5 relative) and model (replays within
+    1e-5), with its peak memory, and the compress CLI through
+    ``inflow.%06i`` files giving a rank-20 input back; (d) ``save_planes``
+    on a 64^3-cell hex volume -> compression weighted by the plane's cell
+    areas -> replay; (e) ``welch_psd``/``welch_csd``/``coherence``/
+    ``cross_correlation`` and ``azimuthal_fourier_series`` on the card
+    against the CPU in f64 (1e-10), ``phase_average`` on phase 4's
+    snapshots against the CPU in f64 on a sub-plane (1e-5), the
+    overlap-save noise scan against the batched generator (1e-5); (f) the
+    CLI with ``-v --pallas`` at a small size: K1 launched, and the POD
+    plots written, or the line saying matplotlib is absent.
 
 Phases 9 and 10 each print their stage table, K1's launch count and
 ``torch.cuda.max_memory_allocated()``.
@@ -108,10 +128,15 @@ def cuda_ms(fn, sync, reps=1):
     (which would otherwise dominate kernels of 0.1 ms).  An untimed call
     comes first, so that the caching allocator already holds the blocks
     the timed calls ask for (a 3.27 GB output that it has to map anew
-    stalls the card for tens of ms)."""
+    stalls the card for tens of ms); with ``reps`` > 1, two untimed calls
+    whose results are alive together, as the timed loop holds one result
+    while it makes the next."""
     import torch
 
-    fn()
+    held = fn()
+    if reps > 1:
+        fn()
+    del held
     sync()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -439,8 +464,8 @@ BIG = dict(nf=8, jma=1024, kma=1024, slabs=260)     # row 2: the same bytes
 #: differ by more than 1e-5 (tests/test_torch_pipeline.py's rule)
 SHARE_LIMIT = 0.01
 #: NVIDIA's H100 SXM data sheet at 700 W: device memory bytes/s and dense
-#: FLOP/s (f32 without tensor cores; bf16 on them)
-PEAK = {"bytes": 3.35e12, "f32": 67e12, "bf16": 989e12}
+#: FLOP/s (f32 without tensor cores; bf16 and f64 on them)
+PEAK = {"bytes": 3.35e12, "f32": 67e12, "bf16": 989e12, "f64": 67e12}
 
 
 def bound(nbytes, flops=0.0, kind="f32"):
@@ -1251,6 +1276,421 @@ def phase_flagship(dev, outdir):
     del C, C64, outs
 
 
+#: phase 11's sizes.  11a: replay steps of phase 4's model.  11b: the model
+#: of benchmarks/bench_replay.py:37-58 (256x128 points, 50 modes, 21
+#: coefficients a mode, 512 steps a call).  11c: the compress CLI's inflow
+#: files (cells of phase 4's plane, snapshots).  11d: the hex volume (cells
+#: a side), its snapshots and the plane's resolution.  11e: the signals'
+#: length, the polar mesh (axial, radial, azimuthal), phase_average's CPU
+#: sub-plane and the noise scan (phase 4's plane and filter).
+SLICE4 = dict(replay_steps=64,
+              replay_bench=dict(npts=256 * 128, nm=50, kmax=21, nsteps=512),
+              inflow=dict(ncell=4096, ns=256),
+              volume=dict(n=64, ns=32, res=50),
+              signal=2 ** 16, polar=(8, 64, 256), sub=4096,
+              scan=dict(jma=512, kma=512, nf=8, nsteps=1024, block=256))
+
+
+def _fourier_series(fr, ts, period):
+    """(Nt, nm) temporal factors of an in-memory FourierResult at times
+    ``ts``: the kept coefficients' series, as the replay equation sums it."""
+    import numpy as np
+
+    return np.stack([np.real(np.exp(2j * np.pi * np.outer(ts, fr.wavenumbers(i))
+                                    / period) @ fr.kept_coeffs(i))
+                     for i in range(fr.num_modes)], axis=1)
+
+
+def _write_prf_model(outdir, model):
+    """A PODFSModel as the .prf flavor (PODFS.dat, mean and mode files), in
+    the layout of ``io/prf.write_podfs_dat``."""
+    from pods_digital_filter_tpu_torch.io.prf import write_field_prf
+
+    os.makedirs(outdir, exist_ok=True)
+    npts, ns = model.num_points, model.num_slots
+    table = lambda packed: packed.reshape(ns, npts).T
+    lines = [str(model.num_modes), str(float(model.period))]
+    lines += [f"{i + 1}\t{int(n)}" for i, n in enumerate(model.counts)]
+    for i, n in enumerate(model.counts):
+        lines += [f"{int(model.k[i, j])}\t{float(model.c_re[i, j])}\t"
+                  f"{float(model.c_im[i, j])}" for j in range(int(n))]
+    with open(os.path.join(outdir, "PODFS.dat"), "w") as f:
+        f.write("\n".join(lines))
+    write_field_prf(os.path.join(outdir, "PODFS_mean.prf"), "PODFS_mean",
+                    model.points, table(model.mean))
+    for i in range(model.num_modes):
+        write_field_prf(os.path.join(outdir, "PODFS_mode_%04d.prf" % (i + 1)),
+                        "PODFS_mode", model.points, table(model.modes[i]))
+
+
+def _packed(fields):
+    """(Nt, Np, S) replayed fields -> (S*Np, Nt) snapshot columns."""
+    return fields.transpose(0, 2, 1).reshape(fields.shape[0], -1).T
+
+
+def phase_replay(mem, outdir, tmp):
+    """Phase 11a-b: the replay CLI on phase 4's model against the C
+    replayer and the in-memory result; replay throughput at
+    benchmarks/bench_replay.py's size."""
+    import numpy as np
+    import torch
+
+    from pods_digital_filter_tpu_torch import native, replay
+
+    nsteps = SLICE4["replay_steps"]
+    rdir = os.path.join(tmp, "replayed")
+    wall, _ = _timed(lambda: replay.main([outdir, "-n", str(nsteps), "--format",
+                                          "npy", "--outdir", rdir]))
+    fields = np.load(os.path.join(rdir, "fields.npy"))
+    ts = np.load(os.path.join(rdir, "times.npy"))
+    # the CLI's load and replay again, each timed; its write (403 MB of
+    # .npy at the full size) is the rest of its wall
+    t_load, model = _timed(lambda: replay.load_model(outdir))
+    t_replay, again = _timed(lambda: replay.Replayer(model).batch(ts))
+    t_write = wall - t_load - t_replay
+    check(np.array_equal(again, fields), "the CLI's fields == Replayer.batch")
+    del again
+    t_c, c = _timed(lambda: native.NativePODFSReplayer(outdir))
+    with c:
+        t_ce, cf = _timed(lambda: c.eval_batch(ts))
+    d_c = float(np.abs(cf - fields).max())
+    fr = mem.fourier
+    want = (mem.mean_field[:, None] + mem.pod.spatial_modes
+            @ _fourier_series(fr, ts, fr.period).T)
+    d_mem = float(np.abs(_packed(fields) - want).max())
+    print(f"phase 11a replay CLI: {nsteps} steps of phase 4's model "
+          f"({model.num_modes} modes, {model.num_points} points, f64 on the "
+          f"card) in {wall:.3f} s; load {t_load:.3f} s, replay (Replayer and "
+          f"batch, with the copy to the host) {t_replay:.3f} s, write (the "
+          f"rest) {t_write:.3f} s; "
+          f"C replayer load {t_c:.3f} s, eval {t_ce:.3f} s; max |CLI - C| = "
+          f"{d_c:.3e} (limit 1e-9); max |CLI - in-memory model| = {d_mem:.3e} "
+          f"(limit 1e-6)", flush=True)
+    check(d_c < 1e-9, "replay CLI vs the C replayer")
+    check(d_mem < 1e-6, "replay CLI vs the in-memory model")
+
+    # 11b: throughput at bench_replay.py's size (its synthetic model)
+    b = SLICE4["replay_bench"]
+    rng = np.random.RandomState(3)
+    k = np.tile(np.arange(b["kmax"]) - b["kmax"] // 2, (b["nm"], 1)).astype(float)
+    points = rng.standard_normal((b["npts"], 3))
+    mean = rng.standard_normal(3 * b["npts"])
+    modes = rng.standard_normal((b["nm"], 3 * b["npts"]))
+    c_re = rng.standard_normal((b["nm"], b["kmax"])) / (1.0 + np.abs(k))
+    c_im = rng.standard_normal((b["nm"], b["kmax"])) / (1.0 + np.abs(k))
+    fc = [np.column_stack([k[i], c_re[i], c_im[i]]) for i in range(b["nm"])]
+    synth = replay.PODFSModel.from_arrays(points, mean, modes, 1.0, fc)
+    bdir = os.path.join(tmp, "bench_replay_model")
+    _write_prf_model(bdir, synth)
+    model = replay.load_prf(bdir)
+    ts = np.linspace(0.0, 0.9, b["nsteps"])
+    n_out = b["nsteps"] * 3 * b["npts"]
+    rate = lambda seconds: b["npts"] * b["nsteps"] / seconds
+    out = {}
+    sync = torch.cuda.synchronize
+    for dt in (torch.float64, torch.float32):
+        rp = replay.Replayer(model, dtype=dt)
+        ms, dev_out = cuda_ms(lambda: rp.batch_device(ts), sync, 5)
+        # host times are uploaded by a blocking copy, which drains the queue
+        # on every call, so ``ms`` holds each call's host launch time too;
+        # with the times already on the card the calls queue behind the spin
+        ts_card = torch.as_tensor(ts, dtype=dt, device=dev_out.device)
+        card_ts_ms, card_out = cuda_ms(lambda: rp.batch_device(ts_card), sync, 5)
+        check(torch.equal(card_out, dev_out), "batch_device: times on the card "
+              "== times from the host")
+        esize = dev_out.element_size()
+        # bytes: the modes and mean read once, the fields written once;
+        # operations: the (Nt, nm) @ (nm, 3 Np) product
+        b_ms, b_by = bound((modes.size + 3 * b["npts"] + n_out) * esize,
+                           2.0 * n_out * b["nm"], "f64" if esize == 8 else "f32")
+        t_host, host = _timed(lambda: rp.batch(ts))
+        # where batch_device's time goes: the product alone, and the product
+        # with the mean added in its epilogue (one torch.addmm)
+        dev = dev_out.device
+        mt = torch.as_tensor(model.modes, dtype=dt, device=dev)
+        mean_t = torch.as_tensor(model.mean, dtype=dt, device=dev)
+        bt = torch.randn(b["nsteps"], b["nm"], dtype=dt, device=dev)
+        gemm_ms, _ = cuda_ms(lambda: bt @ mt, sync, 5)
+        addmm_ms, _ = cuda_ms(lambda: torch.addmm(mean_t, bt, mt), sync, 5)
+        out[str(dt)[6:]] = {
+            "batch_device_ms": ms, "card_ts_ms": card_ts_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "product_ms": gemm_ms, "addmm_ms": addmm_ms,
+            "batch_ms": 1e3 * t_host,
+            "batch_device_points_steps_per_s": rate(ms * 1e-3),
+            "card_ts_points_steps_per_s": rate(card_ts_ms * 1e-3),
+            "batch_points_steps_per_s": rate(t_host)}
+        if dt == torch.float64:
+            ref = host
+        del dev_out, card_out, ts_card, rp, mt, mean_t, bt
+    with native.NativePODFSReplayer(bdir) as c:
+        t_c, cf = _timed(lambda: c.eval_batch(ts))
+    d_c = float(np.abs(cf - ref).max())
+    out["c_replayer"] = {"eval_batch_ms": 1e3 * t_c,
+                         "points_steps_per_s": rate(t_c),
+                         "max_abs_vs_f64": d_c}
+    out["f32_max_abs_vs_f64"] = float(np.abs(host - ref).max())
+    print(f"phase 11b replay throughput, {b['npts']} points x {b['nm']} modes "
+          f"x {b['kmax']} coefficients, {b['nsteps']} steps a call "
+          + json.dumps(out), flush=True)
+    check(d_c < 1e-9 * float(np.abs(ref).max()), "C replayer vs the card (f64)")
+    torch.cuda.empty_cache()
+
+
+def phase_compress(dev, mem, outdir, tmp):
+    """Phase 11c-d: compression of phase 4's snapshots at full size, the
+    compress CLI through inflow files, and plane extraction -> weighted
+    compression -> replay."""
+    import numpy as np
+    import torch
+
+    from pods_digital_filter_tpu_torch import compress, replay
+    from pods_digital_filter_tpu_torch.postproc import planes, probes
+    from pods_digital_filter_tpu_torch.variables import VariableSet
+
+    cfg = mem.config
+    geom = mem.geometry
+    cdir = os.path.join(tmp, "compressed")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # phase 4's snapshots: its centred A plus its mean, made on the card
+    A = torch.as_tensor(mem.A, device=dev)
+    A += torch.as_tensor(mem.mean_field, dtype=A.dtype, device=dev)[:, None]
+    wall, (pr, fr, _) = _timed(lambda: compress.compress_snapshot_matrix(
+        A, geom.cell_centers, mem.dt, 20, 0.9, cdir, device="cuda"))
+    del A
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    d_e = rel_err(pr.energy[:20], mem.pod.energy[:20])
+    ts = np.linspace(0.0, mem.fourier.period, 64, endpoint=False)
+    r_c = replay.Replayer(replay.load_prf(cdir)).batch(ts)
+    r_4 = replay.Replayer(replay.load_prf(outdir)).batch(ts)
+    d_r = float(np.abs(r_c - r_4).max())
+    counts_equal = bool(np.array_equal(fr.counts, mem.fourier.counts))
+    print(f"phase 11c compress_snapshot_matrix on phase 4's snapshots "
+          f"({3 * geom.num_cells} x {cfg.nsteps}, f32, on the card): "
+          f"{wall:.3f} s, peak device memory {peak / 2 ** 30:.3f} GiB; "
+          f"energy[:20] max rel diff to phase 4 {d_e:.3e} (limit 1e-5); "
+          f"Fourier counts equal: {counts_equal}; replay of both models at 64 "
+          f"times: max diff {d_r:.3e} (limit 1e-5)", flush=True)
+    check(d_e <= 1e-5, "compressed energy[:20] vs phase 4")
+    check(d_r < 1e-5, "compressed model replays phase 4's")
+
+    # the compress CLI through inflow.%06i files: cells x snapshots of phase
+    # 4's plane, made rank 20 (its truncated POD), so the model (-m 20 -e 1)
+    # must give the input back
+    ncell, ns = SLICE4["inflow"]["ncell"], SLICE4["inflow"]["ns"]
+    rows = np.concatenate([np.arange(ncell) + c * geom.num_cells
+                           for c in range(3)])
+    X = mem.A[rows, :ns].astype(np.float64)
+    X -= X.mean(axis=1, keepdims=True)
+    lam, V = np.linalg.eigh(X.T @ X)
+    V = V[:, ::-1][:, :20]
+    X = mem.mean_field[rows, None] + (X @ V) @ V.T
+    idir = os.path.join(tmp, "inflow")
+    t_w, _ = _timed(lambda: probes.write_inflow_data(X, ncell, 3, idir))
+    np.savetxt(os.path.join(idir, "points.txt"), geom.cell_centers[:ncell])
+    odir = os.path.join(tmp, "compressed_cli")
+    t_cli, rc = _timed(lambda: compress.main([
+        "--input-dir", idir, "--num-snapshots", str(ns), "--num-cells",
+        str(ncell), "--dt", repr(mem.dt), "--points",
+        os.path.join(idir, "points.txt"), "-m", "20", "-e", "1.0",
+        "--outdir", odir]))
+    check(rc == 0, "compress CLI")
+    got = _packed(replay.Replayer(replay.load_prf(odir)).batch(
+        np.arange(ns) * mem.dt))
+    d_cli = float(np.abs(got - X).max())
+    scale = float(np.abs(X - mem.mean_field[rows, None]).max())
+    print(f"phase 11c compress CLI: {ns} inflow files of {ncell} cells written "
+          f"in {t_w:.3f} s, read and compressed (-m 20 -e 1) in {t_cli:.3f} s; "
+          f"replay at the snapshot times vs the rank-20 input: max diff "
+          f"{d_cli:.3e} (limit {1e-5 * scale:.3e}, 1e-5 of max |X - mean|)",
+          flush=True)
+    check(d_cli <= 1e-5 * scale, "compress CLI model gives its input back")
+
+    # 11d: a synthetic hex volume of n^3 cells (nodes jittered by up to a
+    # tenth of a cell), two travelling patterns; save_planes -> compress
+    # with the plane's cell areas -> replay
+    n, ns, res = (SLICE4["volume"][k] for k in ("n", "ns", "res"))
+    dt = 1e-3
+    rng = np.random.default_rng(11)
+    g = np.linspace(0.0, 1.0, n + 1)
+    nodes = np.stack(np.meshgrid(g, g, g, indexing="ij"), axis=-1)
+    nodes = nodes + rng.uniform(-0.05, 0.05, nodes.shape) / n
+    cells = sum(nodes[i:n + i, j:n + j, k:n + k]
+                for i in (0, 1) for j in (0, 1) for k in (0, 1)) / 8.0
+    pts = cells.reshape(-1, 3)
+    x, y, z = pts.T
+    phi1 = np.stack([np.sin(np.pi * y), np.cos(np.pi * z), y * z], axis=1)
+    phi2 = np.stack([z - y, np.sin(2 * np.pi * x), np.cos(np.pi * y)], axis=1)
+    mean_v = np.stack([1.0 + 0.2 * y, 0.1 * z, 0.05 * x], axis=1)
+    spec = planes.PlaneSpec("inlet", (1.0, 0.0, 0.0), save=False, pod=True)
+    vs = VariableSet.parse("velocity:3,k,epsilon")
+    pod_matrix = {"inlet": np.zeros((vs.num_slots * res * res, ns))}
+    t_all = time.perf_counter()
+    t_first = None
+    for i in range(ns):
+        a1, a2 = np.cos(2 * np.pi * i / 8), np.sin(2 * np.pi * i / 4)
+        vel = mean_v + a1 * phi1 + a2 * phi2
+        fields = {"velocity": vel, "k": 0.5 + 0.1 * a1 * x,
+                  "epsilon": 0.2 + 0.05 * a2 * y}
+        planes.save_planes(pts, fields, [spec], i * dt, i, tmp,
+                           pod_matrix=pod_matrix, resolution=res,
+                           pod_vars=["velocity", "k", "epsilon"])
+        if t_first is None:
+            t_first = time.perf_counter() - t_all
+    t_all = time.perf_counter() - t_all
+    plane = planes.extract_plane(pts, {"k": fields["k"]}, spec.normal,
+                                 resolution=res)
+    areas, centres = plane.areas()
+    P = pod_matrix["inlet"]
+    pdir = os.path.join(tmp, "compressed_planes")
+    t_pc, _ = _timed(lambda: compress.compress_snapshot_matrix(
+        P, centres, dt, 2, 1.0, pdir, cell_weights=areas, varset=vs,
+        device="cuda"))
+    got = _packed(replay.Replayer(replay.load_prf(pdir)).batch(np.arange(ns) * dt))
+    d_p = float(np.abs(got - P).max())
+    scale = float(np.abs(P).max())
+    print(f"phase 11d plane extraction: {pts.shape[0]} cells, {ns} snapshots "
+          f"x 3 fields to a {res}x{res} plane in {t_all:.3f} s (the first, "
+          f"with the triangulation, {t_first:.3f} s); weighted compression "
+          f"(5 slots, 2 modes, on the card) {t_pc:.3f} s; replay vs the plane "
+          f"snapshots: max diff {d_p:.3e} (limit {1e-5 * scale:.3e})", flush=True)
+    check(d_p <= 1e-5 * scale, "plane extraction -> compress -> replay")
+    torch.cuda.empty_cache()
+
+
+def phase_numerics(dev, mem):
+    """Phase 11e: the signal and time numerics on the card against the same
+    port functions on the CPU in float64."""
+    import numpy as np
+    import torch
+
+    from pods_digital_filter_tpu_torch.ops import filters, signal
+    from pods_digital_filter_tpu_torch.parallel import time_ops
+
+    out = {}
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(SLICE4["signal"])
+    y = np.roll(x, 7) + 0.5 * rng.standard_normal(x.size)
+    for name in ("welch_psd", "welch_csd", "coherence", "cross_correlation"):
+        fn = getattr(signal, name)
+        args = (x,) if name == "welch_psd" else (x, y)
+        t, got = _timed(lambda: fn(*args, 1000.0, 1024, 2, device="cuda"))
+        want = fn(*args, 1000.0, 1024, 2, device="cpu")
+        g, w = got[1].cpu().numpy(), want[1].numpy()
+        out[name] = {"rel": float(np.abs(g - w).max() / np.abs(w).max()), "s": t}
+        check(out[name]["rel"] <= 1e-10, f"{name} on the card vs the CPU")
+
+    axiseg, rseg, aziseg = SLICE4["polar"]
+    npts = axiseg * (rseg * aziseg + 1) + 1
+    u = rng.standard_normal((npts, 1))
+    theta = rng.uniform(0.0, 2 * np.pi, npts)
+    idx = signal._ring_index(axiseg, rseg, aziseg)
+    theta[idx] = np.sort(theta[idx], axis=-1)
+    r, xa = rng.uniform(0.1, 1.0, npts), rng.standard_normal(npts)
+    t_a, (m_a, _, _) = _timed(lambda: signal.azimuthal_fourier_series(
+        u, r, theta, xa, 1, axiseg, rseg, aziseg, device="cuda"))
+    t_l, (m_l, _, _) = _timed(lambda: signal.azimuthal_fourier_series_loop(
+        u, r, theta, xa, 1, axiseg, rseg, aziseg))
+    out["azimuthal"] = {"mesh": [axiseg, rseg, aziseg],
+                        "rel": float(np.abs(m_a - m_l).max()
+                                     / np.abs(m_l).max()),
+                        "s": t_a, "loop_s": t_l}
+    check(out["azimuthal"]["rel"] <= 1e-10, "azimuthal vs the loop")
+
+    # phase_average of phase 4's snapshots (f32, 64 steps a period) against
+    # the CPU in f64 on a sub-plane
+    cfg = mem.config
+    npl, ns = mem.geometry.num_cells, cfg.nsteps
+    tv = np.arange(ns) * mem.dt
+    freq = 1.0 / (64 * mem.dt)
+    B = torch.as_tensor(mem.A, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_pa, pa = _timed(lambda: time_ops.phase_average(B, tv, freq, npl,
+                                                     device="cuda"))
+    peak = torch.cuda.max_memory_allocated()
+    sub = SLICE4["sub"]
+    rows = torch.as_tensor(np.concatenate([np.arange(sub) + c * npl
+                                           for c in range(3)]), device=dev)
+    ref = time_ops.phase_average(mem.A[rows.cpu().numpy()].astype(np.float64),
+                                 tv, freq, sub, device="cpu")
+    errs = {}
+    for name in ("v_phase", "nrs_phase", "crs_phase", "B_fluct", "nrs", "crs"):
+        g = getattr(pa, name)[rows].double().cpu().numpy()
+        w = getattr(ref, name).numpy()
+        errs[name] = float(np.abs(g - w).max() / np.abs(w).max())
+    out["phase_average"] = {"s": t_pa, "peak_gib": peak / 2 ** 30,
+                            "num_phase": int(pa.v_phase.shape[1]),
+                            "dtype": str(pa.v_phase.dtype), "rel": errs}
+    check(max(errs.values()) <= 1e-5, "phase_average on the card vs the CPU")
+    del B, pa, rows
+    torch.cuda.empty_cache()
+
+    # the overlap-save scan against the batched generator (f32)
+    sc = SLICE4["scan"]
+    nf, ln = sc["nf"], sc["nf"] / 2.0
+    a = (sc["jma"], sc["kma"], nf, nf, nf, ln, ln, ln)
+    t_b, full = _timed(lambda: filters.generate_correlated_noise(
+        7, 0, sc["nsteps"], *a, device="cuda"))
+    t_s, scan = _timed(lambda: filters.generate_correlated_noise_scan(
+        7, sc["nsteps"], sc["block"], *a, device="cuda"))
+    out["noise_scan"] = {**sc, "max_abs": float((scan - full).abs().max()),
+                         "scan_s": t_s, "batched_s": t_b}
+    del full, scan
+    torch.cuda.empty_cache()
+    print("phase 11e numerics, card vs CPU float64 " + json.dumps(out),
+          flush=True)
+    check(out["noise_scan"]["max_abs"] <= 1e-5,
+          "generate_correlated_noise_scan vs generate_correlated_noise")
+
+
+def phase_plots(tmp):
+    """Phase 11f: the CLI with -v at a small size (K1 counted); its POD
+    plots, or, on a machine without matplotlib, the line that says they
+    were skipped (the only error caught, and printed)."""
+    import importlib.util
+
+    from pods_digital_filter_tpu_torch import cli
+    from pods_digital_filter_tpu_torch.ops import fused_filter
+
+    h5py = importlib.util.find_spec("h5py") is not None
+    try:
+        import matplotlib
+    except ImportError:
+        matplotlib = None
+        print(f"phase 11f plots: matplotlib is absent on this machine, so the "
+              f"-v plots are skipped (h5py present: {h5py})", flush=True)
+    out = os.path.join(tmp, "verbose")
+    fused_filter.LAUNCHES = 0
+    check(cli.main(["-j", "32", "-k", "24", "-n", "64", "-m", "3", "-v",
+                    "--pallas", "--device", "cuda", "--outdir", out]) == 0,
+          "-v run")
+    launches = fused_filter.LAUNCHES
+    pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+    print(f"phase 11f plots: matplotlib "
+          f"{getattr(matplotlib, '__version__', 'absent')}, h5py present: "
+          f"{h5py}; -v --pallas run: K1 launches {launches}, {len(pngs)} PNGs",
+          flush=True)
+    check(launches > 0, "the -v run launched K1")
+    if matplotlib is not None:
+        want = ["POD_mode_energies.png"] + [
+            f"POD_{k}{j}.png" for j in range(3)
+            for k in ("PSD_mode_", "tmode_recon")]
+        check(set(want) <= set(pngs), "the -v POD plots")
+
+
+def phase_slice4(dev, mem, outdir, tmp):
+    """Phase 11: slice 4 on the card, on phase 4's model and result."""
+    t = time.perf_counter()
+    phase_replay(mem, outdir, tmp)
+    phase_compress(dev, mem, outdir, tmp)
+    phase_numerics(dev, mem)
+    phase_plots(tmp)
+    print(f"phase 11 done in {time.perf_counter() - t:.1f} s", flush=True)
+
+
 ALL_VARIANTS = ("base,f32,bf16,xla,noise,noise16b,noise32,noise1seed,noprng,"
                 "noisemin,storeonly,store2d,fuseddummy,gemmonly,fusednoprng,"
                 "storef32,noisebatch")
@@ -1310,6 +1750,8 @@ def main():
         exp_launches = phase_experiments()
         torch.cuda.empty_cache()
         phase_streaming(mem_res, tmp)
+        torch.cuda.empty_cache()
+        phase_slice4(dev, mem_res, os.path.join(tmp, "fused"), tmp)
         del mem_res
         torch.cuda.empty_cache()
         phase_flagship(dev, os.path.join(tmp, "flagship"))

@@ -1,5 +1,6 @@
 """A copy of ``pods_digital_filter_tpu/models/prf_reader.py``, the port's own
-(the contour plots of ``make_plots`` are not ported: they are skipped).
+(the contour plots of ``make_plots`` are skipped, with a printed line, on a
+host without matplotlib; any other plotting error is raised).
 
 2-D ``.prf`` profile reader.
 
@@ -241,6 +242,20 @@ def read_prf(
         dWdy = _smooth_2x2(dWdy)
         dWdz = _smooth_2x2(dWdz)
 
+    dplots = None
+    if make_plots and outdir is not None:
+        from pods_digital_filter_tpu_torch.diagnostics import load_plots
+
+        dplots = load_plots("the .prf contour plots")
+    if dplots is not None:
+        yp, zp = (y / z.max(), z / z.max()) if non_dim else (y, z)
+        figsize = (8, 8 * kma / jma)
+        for name, fld in [("dudy", dUdy), ("dudz", dUdz), ("dvdy", dVdy),
+                          ("dvdz", dVdz), ("dwdy", dWdy), ("dwdz", dWdz),
+                          ("U", U), ("V", V), ("W", W), ("eps", eps), ("k", k)]:
+            dplots.contourf(yp, zp, fld, name, f"{outdir}/{name}",
+                            figsize=figsize)
+
     # incompressibility approximation (digitalfilters.py:876-884)
     dUdx = -dVdy - dWdz
     dVdx = np.zeros((kma, jma))
@@ -266,9 +281,11 @@ def read_prf(
     vv[vv < 0.0] = 0.0
     ww[ww < 0.0] = 0.0
 
-    if make_plots and outdir is not None:
-        print("diagnostics skipped: the .prf contour plots are not ported "
-              "yet (ROADMAP.md, queue A item 10)")
+    if dplots is not None:
+        for name, fld in [("uu", uu), ("vv", vv), ("ww", ww),
+                          ("uv", uv), ("uw", uw), ("vw", vw)]:
+            dplots.contourf(yp, zp, fld, name, f"{outdir}/{name}",
+                            figsize=figsize)
 
     def orient(a):
         return np.flip(a, 0).T   # (kma, jma) -> (jma, kma)

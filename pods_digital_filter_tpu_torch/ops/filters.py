@@ -12,15 +12,14 @@ The noise here is a ``torch.Generator`` stream keyed per slab — the
 counterpart of the original's ``fold_in(key, t0 + s)`` Threefry stream,
 with the same property (any time window is reproducible on its own) but
 other numbers.  Tests that compare with JAX inject the same noise.
-
-``generate_correlated_noise_scan`` (no caller in the JAX package outside
-its tests) is not ported yet.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from pods_digital_filter_tpu_torch.device import resolve_device
 
 # Uniform noise in (-sqrt(3), sqrt(3)) has unit variance
 # (digitalfilters.py:1344 "pdfr = np.sqrt(3.0)").
@@ -145,6 +144,47 @@ def generate_correlated_noise(
                             kma + 2 * nfz, num_components, dtype, device)
     z = filter_spatial(noise.to(dtype), by, bz, jma, kma)
     return filter_temporal(z, bx, axis=-3)
+
+
+def generate_correlated_noise_scan(
+    seed: int, nsteps: int, block: int, jma: int, kma: int,
+    nfx: int, nfy: int, nfz: int, lnx: float, lny: float, lnz: float,
+    num_components: int = 3, dtype=torch.float32, device="cuda",
+    noise: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Streaming variant of :func:`generate_correlated_noise` for the window
+    ``[0, nsteps)``: overlap-save over time blocks of ``block`` steps, the
+    original's ``lax.scan`` as a host loop.
+
+    The carry is the trailing ``2*nfx`` *spatially filtered* slabs — the
+    analog of the reference's ring buffer, carrying the (jma, kma) filtered
+    slabs instead of the raw noise, so the spatial filter runs once per
+    slab.  Each block draws its slabs from the per-slab stream (or slices
+    ``noise``, the raw ``(C, nsteps + 2nfx, jma + 2nfy, kma + 2nfz)``
+    field, as :func:`generate_correlated_noise` takes it).  ``nsteps``
+    must be a multiple of ``block``."""
+    if block <= 0 or nsteps % block:
+        raise ValueError(f"nsteps {nsteps} must be a multiple of block {block}")
+    device = resolve_device(device) if noise is None else noise.device
+    bx = gaussian_fir_coeffs(nfx, lnx, dtype, device)
+    by = gaussian_fir_coeffs(nfy, lny, dtype, device)
+    bz = gaussian_fir_coeffs(nfz, lnz, dtype, device)
+    nfx2 = 2 * nfx
+    jn, kn = jma + 2 * nfy, kma + 2 * nfz
+
+    def filt_block(t0, num):
+        raw = (noise_slabs(seed, t0, num, jn, kn, num_components, dtype, device)
+               if noise is None else noise[:, t0:t0 + num])
+        return filter_spatial(raw.to(dtype), by, bz, jma, kma)
+
+    out = torch.empty((num_components, nsteps, jma, kma), dtype=dtype,
+                      device=device)
+    carry = filt_block(0, nfx2)      # warm-up: the first 2*nfx filtered slabs
+    for t in range(0, nsteps, block):
+        window = torch.cat([carry, filt_block(nfx2 + t, block)], dim=1)
+        out[:, t:t + block] = filter_temporal(window, bx, axis=-3)
+        carry = window[:, block:]
+    return out
 
 
 def filter_direct_3d(noise: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:

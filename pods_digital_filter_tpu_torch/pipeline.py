@@ -318,7 +318,7 @@ def run_pipeline(cfg: PipelineConfig, device="cuda",
 
     if write_outputs:
         with timer.stage("export"):
-            _export_model(cfg, geom, pr, fr, mean_host, dt, files)
+            _export_model(cfg, geom, pr, fr, mean_host, dt, files, device=dev)
 
     return PipelineResult(
         config=cfg, dt=dt, geometry=geom,
@@ -328,13 +328,16 @@ def run_pipeline(cfg: PipelineConfig, device="cuda",
 
 
 def _export_model(cfg, geom, pr, fr, mean_host, dt, files,
-                  defer_eigenvalues: bool = False):
+                  defer_eigenvalues: bool = False, device="cuda"):
     """Copy of the original's model export (PODFS.py:1341-1362 layout),
     shared by the in-memory and streaming paths.
 
     ``defer_eigenvalues``: skip the eigenvalue file — the streaming path
     writes it after the deferred spectrum resolves (the only export that
-    consumes the full spectrum)."""
+    consumes the full spectrum).  Under ``cfg.verbose`` the POD plots'
+    spectra are computed on ``device``; a plotting error fails the run, and
+    only a host without matplotlib skips the plots (the original prints and
+    goes on after any exception)."""
     outdir = cfg.outdir
     if not defer_eigenvalues:
         files.append(prf_io.write_eigenvalues(outdir, pr.num_valid,
@@ -355,8 +358,11 @@ def _export_model(cfg, geom, pr, fr, mean_host, dt, files,
         files.extend(prf_io.write_temporal_modes(
             outdir, min(pr.num_valid, pr.temporal_modes.shape[1]), dt,
             pr.temporal_modes))
-        print("diagnostics skipped: the matplotlib POD plots are not ported "
-              "yet (ROADMAP.md, queue A item 10)")
+        from pods_digital_filter_tpu_torch.diagnostics import load_plots
+
+        plots = load_plots("the POD plots")
+        if plots is not None:
+            plots.pod_diagnostics(outdir, pr, fr, dt, device=device)
     if cfg.hdf5:
         files.append(hdf5_io.write_hdf5(
             outdir, pr.num_trunc, fr.period, fr.counts,
@@ -387,7 +393,7 @@ def _unlink_stale_mode_files(outdir: str, keep: int):
                 os.unlink(path)
 
 
-def _make_spectrum_finalizer(cfg, sp, result, geom, dt, timer, write):
+def _make_spectrum_finalizer(cfg, sp, result, geom, dt, timer, write, dev):
     """The deferred-spectrum completion of the streaming tail: join the
     spectrum worker; if the final valid-mode count shrank below the
     optimistic truncation, redo Fourier compression and the model export
@@ -407,7 +413,7 @@ def _make_spectrum_finalizer(cfg, sp, result, geom, dt, timer, write):
                     _unlink_stale_mode_files(cfg.outdir, pr.num_trunc)
                     _export_model(cfg, geom, pr, result.fourier,
                                   result.mean_field, dt, result.files,
-                                  defer_eigenvalues=True)
+                                  defer_eigenvalues=True, device=dev)
         if write:
             result.files.append(prf_io.write_eigenvalues(
                 cfg.outdir, pr.num_valid, pr.energy))
@@ -447,7 +453,7 @@ def _run_pipeline_streaming(cfg, fields, dt, filt, rotate, geom, timer,
     if write_outputs:
         with timer.stage("export"):
             _export_model(cfg, geom, pr, fr, mean_host, dt, files,
-                          defer_eigenvalues=deferred)
+                          defer_eigenvalues=deferred, device=dev)
 
     result = PipelineResult(
         config=cfg, dt=dt, geometry=geom,
@@ -456,7 +462,7 @@ def _run_pipeline_streaming(cfg, fields, dt, filt, rotate, geom, timer,
     )
     if deferred:
         result._finalize = _make_spectrum_finalizer(
-            cfg, sp, result, geom, dt, timer, write_outputs)
+            cfg, sp, result, geom, dt, timer, write_outputs, dev)
         if not defer_finalize:
             result.finalize()
     return result

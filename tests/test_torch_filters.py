@@ -172,3 +172,60 @@ def test_output_statistics():
         corr = np.mean(y[:, :, r:] * y[:, :, :-r]) / var
         expected = np.exp(-np.pi * r * r / (4.0 * ln * ln))
         assert abs(corr - expected) < 0.08, (r, corr, expected)
+
+
+def test_scan_matches_batched():
+    """The overlap-save block loop equals the batched generator on the
+    port's own stream (float64)."""
+    args = dict(jma=6, kma=8, nfx=3, nfy=3, nfz=3, lnx=1.5, lny=1.5, lnz=1.5,
+                dtype=torch.float64, device="cpu")
+    full = np_of(tf.generate_correlated_noise(11, 0, 12, **args))
+    scanned = np_of(tf.generate_correlated_noise_scan(11, 12, 4, **args))
+    np.testing.assert_allclose(scanned, full, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("nfx,block", [(2, 3), (1, 6)])
+def test_scan_matches_jax_on_injected_noise(monkeypatch, nfx, block):
+    """The port's scan and the JAX scan on one injected raw field (float64,
+    rtol 1e-10): the JAX module's noise_slabs is patched (in this test
+    only) to slice that field at the traced t0 with dynamic_slice; the port
+    takes it as ``noise``."""
+    import jax
+    import jax.numpy as jnp
+
+    jma, kma, nfy, nfz, nsteps = 5, 7, 2, 1, 12
+    rng = np.random.default_rng(17)
+    raw = uniform_noise(rng, (3, nsteps + 2 * nfx, jma + 2 * nfy,
+                              kma + 2 * nfz), F64)
+    raw_j = to_jax(raw, F64)
+
+    def sliced(key, t0, num, jn, kn, num_components, dtype):
+        return jax.lax.dynamic_slice_in_dim(raw_j, t0, num, axis=1).astype(dtype)
+
+    monkeypatch.setattr(jf, "noise_slabs", sliced)
+    jf._generate_scan_jit.clear_cache()
+    try:
+        want = np.asarray(jf.generate_correlated_noise_scan(
+            jax.random.key(0), nsteps, block, jma, kma, nfx, nfy, nfz, 1.3,
+            1.1, 0.9, dtype=jnp.float64))
+    finally:
+        jf._generate_scan_jit.clear_cache()
+    got = np_of(tf.generate_correlated_noise_scan(
+        0, nsteps, block, jma, kma, nfx, nfy, nfz, 1.3, 1.1, 0.9,
+        dtype=torch.float64, noise=to_torch(raw, F64)))
+    assert got.shape == want.shape == (3, nsteps, jma, kma)
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-13)
+
+
+def test_scan_without_temporal_taps():
+    """nfx = 0 carries no slabs: the scan equals the batched generator on
+    the same field (the JAX scan refuses this case: its carry
+    ``window[:, -0:]`` is the whole window)."""
+    rng = np.random.default_rng(19)
+    raw = to_torch(uniform_noise(rng, (2, 8, 9, 10), F64), F64)
+    args = (8, 4, 5, 6, 0, 2, 2, 1.0, 1.2, 1.4)
+    got = tf.generate_correlated_noise_scan(0, *args, num_components=2,
+                                            dtype=torch.float64, noise=raw)
+    want = tf.generate_correlated_noise(0, 0, 8, *args[2:], num_components=2,
+                                        dtype=torch.float64, noise=raw)
+    np.testing.assert_allclose(np_of(got), np_of(want), rtol=1e-12, atol=1e-14)

@@ -5,7 +5,8 @@ JAX package, and its numpy copies of the JAX package's writers are exact.
   ``pods_digital_filter_tpu``, every module of the port and its CLI
   import, and the CLI runs the main path end to end, the streaming POD
   (``--streaming_block``, with ``--checkpoint_dir``) and the checkpointed
-  in-memory path.
+  in-memory path; then the replay and compress entry points run on the
+  model it wrote (and the C replayer reads it).
 * No file of the port, and not ``chip_smoke.py``, has an import whose root
   is ``pods_digital_filter_tpu`` (an AST walk).
 * The copied ``io/prf.py``, ``io/vtk.py``, ``io/plane.py`` and
@@ -61,6 +62,23 @@ assert cli.main(common + ["--pallas", "--streaming_block", "4", "--gram_group",
                           "2", "--eig_mode", "topk", "--checkpoint_dir",
                           "ck_stream", "--outdir", "stream"]) == 0
 assert cli.main(common + ["--checkpoint_dir", "ck_mem", "--outdir", "ckpt"]) == 0
+import numpy as np
+from pods_digital_filter_tpu_torch import compress, native, replay
+from pods_digital_filter_tpu_torch.postproc.probes import write_inflow_data
+assert replay.main(["fused", "-n", "4", "--format", "npy", "--outdir",
+                    "replayed", "--device", "cpu"]) == 0
+m = replay.load_prf("fused")
+ts = np.arange(8) * m.period / 8
+A = replay.Replayer(m, device="cpu").batch_device(ts).numpy().T
+if native.podfs_replay_available():
+    with native.NativePODFSReplayer("fused") as c:
+        assert np.abs(c.eval_batch(ts).transpose(0, 2, 1).reshape(8, -1).T
+                      - A).max() < 1e-9
+write_inflow_data(A, m.num_points, 3, "inflow")
+assert compress.main(["--input-dir", "inflow", "--num-snapshots", "8",
+                      "--num-cells", str(m.num_points), "--dt",
+                      str(m.period / 8), "-m", "2", "--outdir", "compressed",
+                      "--device", "cpu"]) == 0
 print("MODULES", len(names), "REFUSED",
       any(m.split(".")[0] in REFUSED for m in sys.modules))
 """
@@ -75,8 +93,9 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     line = [ln for ln in out.stdout.splitlines() if ln.startswith("MODULES")]
     assert line and line[0].endswith("REFUSED False"), out.stdout[-2000:]
     assert int(line[0].split()[1]) >= 20
-    for d in ("fused", "plain", "stream", "ckpt"):
+    for d in ("fused", "plain", "stream", "ckpt", "compressed"):
         assert (tmp_path / d / "PODFS.dat").exists()
+    assert (tmp_path / "replayed" / "fields.npy").exists()
     assert (tmp_path / "ck_stream" / "gram_meta.json").exists()
     assert (tmp_path / "ck_mem" / "meta.json").exists()
     assert (tmp_path / "fused" / "PODFS.hdf5").exists()
@@ -218,4 +237,8 @@ def test_port_file_imports_nothing_of_the_jax_package(path):
 
 def test_port_files_are_walked():
     assert len(PORT_FILES) >= 30
-    assert "pods_digital_filter_tpu_torch/config.py" in PORT_FILES
+    for name in ("config.py", "replay.py", "compress.py", "ops/signal.py",
+                 "parallel/time_ops.py", "diagnostics/plots.py",
+                 "postproc/geometry.py", "postproc/planes.py",
+                 "postproc/probes.py"):
+        assert "pods_digital_filter_tpu_torch/" + name in PORT_FILES, name

@@ -354,3 +354,32 @@ def test_cuda_device_without_card_raises(tmp_path):
         pytest.skip("a CUDA card is present; the refusal needs a host without one")
     with pytest.raises(RuntimeError, match="cuda"):
         tpipe.run_pipeline(small_config(tmp_path), device="cuda")
+
+
+def test_bf16_result_A_is_float32(tmp_path, monkeypatch):
+    """A bf16 run's ``PipelineResult.A`` is float32 in the port (numpy has
+    no bfloat16, ``ops/pod.py:29-37``) and bf16 (ml_dtypes) in JAX; the
+    values are the same.  Both pipelines take one bf16 snapshot matrix
+    (each package's ``generate_snapshot_matrix`` patched to return it: the
+    noise streams differ by construction) and centre it in bf16."""
+    import jax.numpy as jnp
+    import ml_dtypes
+
+    from pods_digital_filter_tpu import pipeline as jpipe
+
+    kw = dict(dtype="bfloat16", nsteps=6, verbose=False, hdf5=False,
+              plane=dict(jma=4, kma=5, res=0.1))
+    rng = np.random.default_rng(23)
+    A = (1.0 + 0.1 * rng.standard_normal((3 * 20, 6))).astype(ml_dtypes.bfloat16)
+    monkeypatch.setattr(tpipe, "generate_snapshot_matrix",
+                        lambda *a, **k: torch.as_tensor(
+                            A.astype(np.float32)).to(torch.bfloat16))
+    monkeypatch.setattr(jpipe, "generate_snapshot_matrix",
+                        lambda *a, **k: jnp.asarray(A))
+    got = tpipe.run_pipeline(small_config(tmp_path, **kw), device="cpu",
+                             write_outputs=False).A
+    want = jpipe.run_pipeline(small_config(tmp_path, "jax", **kw),
+                              write_outputs=False).A
+    assert got.dtype == np.float32
+    assert want.dtype == ml_dtypes.bfloat16
+    np.testing.assert_array_equal(got, want.astype(np.float32))
