@@ -3,9 +3,11 @@ what the port calls: the ``.prf`` table writer and parser
 (:func:`write_rows_fixed12`, :func:`parse_table`, :func:`parse_tables`) and
 the solver-side C replay library (:class:`NativePODFSReplayer`).
 
-``fastio.c``, ``podfs_replay.c`` and ``podfs_replay.h`` are copies of the
-original's C sources.  Each library is compiled on first use with the
-system C compiler into ``native/_build/`` beside this file (cached on the
+``podfs_replay.c`` and ``podfs_replay.h`` are copies of the original's C
+sources; ``fastio.c`` is a copy whose ``write_rows_fixed12`` formats a
+large table on several threads and writes the same bytes.  Each library
+is compiled on first use with the system C compiler into
+``native/_build/`` beside this file (cached on the
 source's mtime) and loaded with ctypes.  Without a compiler, or where that
 directory is not writable, the table callers take their Python formatter
 and ``np.loadtxt``, and :class:`NativePODFSReplayer` raises.  The replay
@@ -22,6 +24,8 @@ import subprocess
 import threading
 
 import numpy as np
+
+from pods_digital_filter_tpu_torch.utils import timing
 
 _SRC = os.path.join(os.path.dirname(__file__), "fastio.c")
 BUILD_DIR = os.path.join(os.path.dirname(__file__), "_build")
@@ -43,7 +47,9 @@ def _compile(src: str = _SRC, libname: str = "libfastio.so") -> str | None:
             base = [cc, "-O3", "-shared", "-fPIC", "-o", tmp, src, "-lm"]
             try:
                 # OpenMP parallelises parse_table's chunks and
-                # podfs_eval_batch's timesteps
+                # podfs_eval_batch's timesteps; write_rows_fixed12 starts
+                # POSIX threads of its own, with or without it (OpenMP's
+                # ordered loop was slower there, PERF.md)
                 subprocess.run(base + ["-fopenmp"], check=True,
                                capture_output=True, timeout=120)
             except subprocess.SubprocessError:
@@ -74,6 +80,9 @@ def _load():
                 ctypes.POINTER(ctypes.c_double),
                 ctypes.c_long, ctypes.c_long, ctypes.c_char,
             ]
+            fn = lib.write_rows_fixed12_threads
+            fn.restype = ctypes.c_int
+            fn.argtypes = []
             fn = lib.parse_table
             fn.restype = ctypes.c_long
             fn.argtypes = [
@@ -95,7 +104,13 @@ def available() -> bool:
 def write_rows_fixed12(path: str, mode: str, rows: np.ndarray,
                        sep: str = ",") -> bool:
     """Append/write ``rows`` as sep-joined ``%0.12f`` lines.  Returns False
-    (without writing) when the native library is unavailable."""
+    (without writing) when the native library is unavailable.
+
+    A table of 256 Ki values or more is formatted on up to 16 threads, one
+    less than the processors the process may run on; their number is added
+    to the counter ``io.prf.write_threads`` (1 for a table written on one
+    thread).  At most 2 parts of text a thread, each about 1 MiB or less,
+    wait to be written."""
     lib = _load()
     if lib is None:
         return False
@@ -109,6 +124,7 @@ def write_rows_fixed12(path: str, mode: str, rows: np.ndarray,
     )
     if n != rows.shape[0]:
         raise OSError(f"native writer failed for {path!r} (wrote {n} rows)")
+    timing.count("io.prf.write_threads", lib.write_rows_fixed12_threads())
     return True
 
 

@@ -4,19 +4,39 @@
  * (nsigproclib_no_mpi.py:880-882) inside per-row Python loops
  * (PODFS.py:879-884, 1739-1745, 1794-1800) — the dominant cost when
  * exporting large planes.  This C implementation formats with integer
- * arithmetic (no printf in the hot loop) and writes through a 1 MiB
- * buffer; exact same "%0.12f" output, ~40x faster than the Python loop.
+ * arithmetic (no printf in the hot loop) into heap buffers of about 1 MiB
+ * of text; exact same "%0.12f" output, ~40x faster than the Python loop.
+ * A large table is cut into parts of rows that several POSIX threads
+ * format at once; the parts are written in row order.
  *
  * Built as a shared library at first use (see native/__init__.py) and
  * called through ctypes; no Python.h dependency.
  */
 
+#define _GNU_SOURCE
+#include <pthread.h>
+#include <sched.h>
 #include <stdio.h>
 #include <stdint.h>
+#include <stdlib.h>
 #include <string.h>
+#include <unistd.h>
 #include <math.h>
 
 #define BUF_CAP (1u << 20)
+
+/* parts a table is cut into, per thread that formats it */
+#define PARTS_PER_THREAD 8
+
+/* formatted parts that wait to be written, per thread, at most */
+#define PARTS_AHEAD 2
+
+/* Tables of fewer values are formatted on the calling thread alone: below
+ * it, starting the threads costs about what they save (PERF.md). */
+#define PAR_MIN_VALS (1L << 18)
+
+/* at most as many formatting threads as parse_table takes */
+#define MAX_THREADS 16
 
 /* Format v as "%0.12f" into out; returns chars written.
  * Exact printf parity: the scaled integer n = round(v * 10^12) is computed
@@ -79,34 +99,202 @@ static int fmt_fixed12(double v, char *out)
     return (int)(p - out);
 }
 
+/* Format row r into buf; returns the bytes written. */
+static size_t format_row(const double *data, long r, long ncols, char sep,
+                         char *buf)
+{
+    size_t used = 0;
+    for (long c = 0; c < ncols; ++c) {
+        if (c) buf[used++] = sep;
+        used += (size_t)fmt_fixed12(data[r * ncols + c], buf + used);
+    }
+    buf[used++] = '\n';
+    return used;
+}
+
+/* Threads that formatted the calling thread's last table. */
+static _Thread_local int last_threads = 1;
+
+/* Threads for a table of nvals values: one below PAR_MIN_VALS, else one
+ * less than the processors this process may run on (a processor stays free
+ * for the caller's other threads), at most MAX_THREADS.  A cgroup's CPU
+ * quota is not seen: the threads then share the quota. */
+static int writer_threads(long nvals)
+{
+    if (nvals < PAR_MIN_VALS) return 1;
+    long np = sysconf(_SC_NPROCESSORS_ONLN);
+#ifdef __linux__
+    cpu_set_t set;
+    if (sched_getaffinity(0, sizeof set, &set) == 0) np = CPU_COUNT(&set);
+#endif
+    long nt = np - 1 < MAX_THREADS ? np - 1 : MAX_THREADS;
+    return nt > 1 ? (int)nt : 1;
+}
+
+/* One table shared by its threads, cut into parts of part_rows rows.  The
+ * threads claim parts in row order and format each into a heap buffer of
+ * its own; the calling thread writes the parts in row order, and formats
+ * parts itself while the next one to write is not ready.  A part is
+ * claimed only while fewer than `ahead` parts wait to be written, so that
+ * much text at most is held.  All of it is guarded by mu; a wait blocks. */
+struct table {
+    const double *data;
+    long nrows, ncols, part_rows, nparts, ahead;
+    char sep;
+    char **text;
+    size_t *len;
+    char *state;            /* 0 pending, 1 formatted, 2 out of memory */
+    long next;              /* the next part to claim */
+    long written;           /* the parts written */
+    int stop;               /* the table is written, or a write failed */
+    pthread_mutex_t mu;
+    pthread_cond_t done;    /* a part was formatted */
+    pthread_cond_t room;    /* a part was written */
+};
+
+/* With mu held: claim the next part, or -1 where none is left or there is
+ * no room for one. */
+static long claim(struct table *t)
+{
+    if (t->stop || t->next >= t->nparts || t->next >= t->written + t->ahead)
+        return -1;
+    return t->next++;
+}
+
+/* Format part p with mu released; returns with mu held, the part set. */
+static void format_part(struct table *t, long p)
+{
+    const size_t row_max = (size_t)t->ncols * 340 + 2;
+    long r0 = p * t->part_rows;
+    long r1 = r0 + t->part_rows < t->nrows ? r0 + t->part_rows : t->nrows;
+    /* 17 characters a value as a start; doubled when a row might not fit */
+    size_t cap = (size_t)(r1 - r0) * ((size_t)t->ncols * 17 + 1) + row_max;
+    size_t used = 0;
+    char *buf = (char *)malloc(cap);
+    char st = buf ? 1 : 2;
+    for (long r = r0; st == 1 && r < r1; ++r) {
+        if (used + row_max > cap) {
+            char *grown = (char *)realloc(buf, cap *= 2);
+            if (grown) buf = grown;
+            else st = 2;
+        }
+        if (st == 1)
+            used += format_row(t->data, r, t->ncols, t->sep, buf + used);
+    }
+    pthread_mutex_lock(&t->mu);
+    t->text[p] = buf;
+    t->len[p] = used;
+    t->state[p] = st;
+    pthread_cond_signal(&t->done);
+}
+
+static void *format_parts(void *arg)
+{
+    struct table *t = (struct table *)arg;
+    pthread_mutex_lock(&t->mu);
+    while (!t->stop && t->next < t->nparts) {
+        long p = claim(t);
+        if (p < 0) {
+            pthread_cond_wait(&t->room, &t->mu);
+        } else {
+            pthread_mutex_unlock(&t->mu);
+            format_part(t, p);
+        }
+    }
+    pthread_mutex_unlock(&t->mu);
+    return NULL;
+}
+
+/* Format the table on nt threads (the caller one of them) and write it to
+ * f in row order; returns the threads that ran, or 0 on an error.  Where a
+ * thread cannot be started, the caller does its share. */
+static int write_parts(struct table *t, int nt, FILE *f)
+{
+    pthread_t tid[MAX_THREADS];
+    int started = 0, err = 0;
+    /* one more than nparts, so that an empty table allocates too */
+    t->text = (char **)calloc((size_t)t->nparts + 1, sizeof(char *));
+    t->len = (size_t *)calloc((size_t)t->nparts + 1, sizeof(size_t));
+    t->state = (char *)calloc((size_t)t->nparts + 1, 1);
+    if (!t->text || !t->len || !t->state) {
+        free(t->text);
+        free(t->len);
+        free(t->state);
+        return 0;
+    }
+    pthread_mutex_init(&t->mu, NULL);
+    pthread_cond_init(&t->done, NULL);
+    pthread_cond_init(&t->room, NULL);
+    for (; started < nt - 1; ++started)
+        if (pthread_create(&tid[started], NULL, format_parts, t) != 0)
+            break;
+    pthread_mutex_lock(&t->mu);
+    for (long p = 0; p < t->nparts && !err; ++p) {
+        while (!t->state[p]) {
+            long q = claim(t);
+            if (q < 0) pthread_cond_wait(&t->done, &t->mu);
+            else {
+                pthread_mutex_unlock(&t->mu);
+                format_part(t, q);
+            }
+        }
+        pthread_mutex_unlock(&t->mu);
+        if (t->state[p] != 1 ||
+            fwrite(t->text[p], 1, t->len[p], f) != t->len[p])
+            err = 1;
+        free(t->text[p]);
+        t->text[p] = NULL;
+        pthread_mutex_lock(&t->mu);
+        t->written = p + 1;
+        pthread_cond_signal(&t->room);
+    }
+    t->stop = 1;
+    pthread_cond_broadcast(&t->room);
+    pthread_mutex_unlock(&t->mu);
+    for (int i = 0; i < started; ++i) pthread_join(tid[i], NULL);
+    for (long p = 0; p < t->nparts; ++p) free(t->text[p]);
+    pthread_cond_destroy(&t->room);
+    pthread_cond_destroy(&t->done);
+    pthread_mutex_destroy(&t->mu);
+    free(t->text);
+    free(t->len);
+    free(t->state);
+    return err ? 0 : started + 1;
+}
+
 /* Write nrows x ncols doubles as sep-joined fixed-12 rows.
- * mode: "w" or "a".  Returns number of rows written, or -1 on error. */
+ * mode: "w" or "a".  Returns number of rows written, or -1 on error.
+ * Reentrant: every call formats into buffers of its own.  A part is
+ * about BUF_CAP of text, or less on several threads: an eighth of a
+ * thread's rows. */
 long write_rows_fixed12(const char *path, const char *mode,
                         const double *data, long nrows, long ncols,
                         char sep)
 {
+    const int nt = writer_threads(nrows * ncols);
+    long part_rows = (long)(BUF_CAP / ((size_t)ncols * 17 + 1));
+    long share = (nrows + PARTS_PER_THREAD * nt - 1) / (PARTS_PER_THREAD * nt);
+    if (nt > 1 && share < part_rows) part_rows = share;
+    if (part_rows < 1) part_rows = 1;
+    struct table t = {.data = data, .nrows = nrows, .ncols = ncols,
+                      .part_rows = part_rows,
+                      .nparts = (nrows + part_rows - 1) / part_rows,
+                      .ahead = (long)PARTS_AHEAD * nt, .sep = sep};
+    last_threads = 1;
+
     FILE *f = fopen(path, mode);
     if (!f) return -1;
+    int ran = write_parts(&t, nt, f);
+    if (fclose(f) != 0) ran = 0;
+    if (ran) last_threads = ran;
+    return ran ? nrows : -1;
+}
 
-    static char buf[BUF_CAP];
-    size_t used = 0;
-    /* worst case via snprintf fallback: ~323 chars for huge magnitudes */
-    const size_t row_max = (size_t)ncols * 340 + 2;
-
-    for (long r = 0; r < nrows; ++r) {
-        if (used + row_max > BUF_CAP) {
-            if (fwrite(buf, 1, used, f) != used) { fclose(f); return -1; }
-            used = 0;
-        }
-        for (long c = 0; c < ncols; ++c) {
-            if (c) buf[used++] = sep;
-            used += (size_t)fmt_fixed12(data[r * ncols + c], buf + used);
-        }
-        buf[used++] = '\n';
-    }
-    if (used && fwrite(buf, 1, used, f) != used) { fclose(f); return -1; }
-    if (fclose(f) != 0) return -1;
-    return nrows;
+/* Threads that formatted the table of the calling thread's last
+ * write_rows_fixed12 (1 where the table stayed on one thread). */
+int write_rows_fixed12_threads(void)
+{
+    return last_threads;
 }
 
 /* ------------------------------------------------------------------ */
@@ -124,8 +312,6 @@ long write_rows_fixed12(const char *path, const char *mode,
  * out receives up to max_vals doubles; *ncols_out gets the value count of
  * the first numeric line.  Returns total values parsed, -1 on I/O error,
  * -2 if the table holds more than max_vals values.                     */
-
-#include <stdlib.h>
 
 #ifdef _OPENMP
 #include <omp.h>

@@ -17,7 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import torch_parity  # noqa: F401  (pins torch's thread count)
 
-from pods_digital_filter_tpu_torch import cli, compress, pipeline, replay
+from pods_digital_filter_tpu_torch import cli, compress, native, pipeline, replay
 from pods_digital_filter_tpu_torch import config as tconfig
 from pods_digital_filter_tpu_torch.utils import timing
 
@@ -176,6 +176,23 @@ def test_counts_of_a_run(name, tmp_path):
         assert c["io.prf.write"] + c.get("io.vtk.write", 0) == len(files)
         assert c["io.prf.write_bytes"] + c.get("io.vtk.write_bytes", 0) \
             == _file_bytes(files)
+        # every .prf table is small here: one formatting thread each
+        assert c["io.prf.write_threads"] == sum(f.endswith(".prf")
+                                                for f in files)
+
+
+@pytest.mark.parametrize("rows", [2, 50000])
+def test_writer_threads_counter(rows, tmp_path):
+    """A large table adds its formatting threads, more than one where the
+    host has 3 or more processors; a small table adds exactly 1."""
+    if rows > 2 and len(os.sched_getaffinity(0)) < 3:
+        pytest.skip("fewer than 3 processors: every table takes one thread")
+    table = np.random.default_rng(5).standard_normal((rows, 6))
+    timing.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert native.write_rows_fixed12(str(tmp_path / "t.prf"), "w", table)
+    n = timing.counts()["io.prf.write_threads"]
+    assert n == 1 if rows == 2 else n > 1
 
 
 def _worker_counts():
