@@ -22,6 +22,9 @@ from dataclasses import dataclass
 
 from h100bench.harness import dir_bytes, splitmix
 
+#: the window's units are whole models (``metrics/model_s.py``)
+UNITS = "models"
+
 
 @dataclass
 class State:

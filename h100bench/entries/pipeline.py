@@ -9,17 +9,28 @@ warms the cell's own shapes: a whole model without its export in memory;
 one block generation and one Gram tile product on the streaming path; and
 the native writer on a two-row file.  The check judges one model, drawn
 from the seed, against the plain reference regenerated from its seed.
+
+A configuration whose ``sizes`` state a mesh (``shard_time``,
+``shard_space``) runs on every rank of the cell's job: set-up first makes
+the program's mesh (``parallel.mesh.make_mesh``, which picks this rank's
+card and the backend), then warms a whole model without its export (on
+the streaming path, one block long, which holds every shape but the eigen
+half's); rank 0 decides after each model where the window ends; only rank
+0 writes model files, and the check reads them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import os
 import time
 from dataclasses import dataclass
 
-from h100bench.harness import dir_bytes, splitmix
+from h100bench.harness import dir_bytes, mesh_size, splitmix
 
+#: the window's units are whole models (``metrics/model_s.py``)
+UNITS = "models"
 
 #: each key of a configuration's ``sizes`` and the program's flag for it;
 #: a key with a list value gives one flag per element, ``True`` a bare flag
@@ -29,7 +40,8 @@ FLAGS = {"jma": "-j", "kma": "-k", "nsteps": "-n", "res": "-r",
          "mean_profile": "-p", "turb_profile": "--turb_profile",
          "num_modes": "-m", "energy_target": "-e", "dtype": "--dtype",
          "pallas": "--pallas", "streaming_block": "--streaming_block",
-         "gram_group": "--gram_group", "eig_mode": "--eig_mode"}
+         "gram_group": "--gram_group", "eig_mode": "--eig_mode",
+         "shard_time": "--shard_time", "shard_space": "--shard_space"}
 
 #: the files a model of the pipeline writes besides ``reference.model``'s
 FILES = ("POD.spatial_mean_field_*.vtk",)
@@ -57,6 +69,7 @@ def program_args(sizes):
 @dataclass
 class State:
     argv: list          # the program's flags for the configuration
+    mesh: object = None  # the program's mesh, where the configuration has one
 
 
 def _config(ctx, argv, outdir, seed):
@@ -85,11 +98,17 @@ def setup(ctx):
 
     from pods_digital_filter_tpu_torch import pipeline
 
-    argv = program_args(ctx.cell.config["sizes"])
+    sizes = ctx.cell.config["sizes"]
+    argv = program_args(sizes)
     state = State(argv=argv)
+    if mesh_size(sizes) > 1:
+        from pods_digital_filter_tpu_torch.parallel.mesh import make_mesh
+
+        state.mesh = make_mesh(int(sizes.get("shard_time", 1)),
+                               int(sizes.get("shard_space", 1)), ctx.device)
     cfg = _config(ctx, argv, os.path.join(ctx.outdir, "warm"),
                   splitmix(ctx.seed ^ 0x3C6EF372))
-    if cfg.streaming_block:
+    if cfg.streaming_block and state.mesh is None:
         fields, _, filt, cfg2, rotate = pipeline.resolve_profile(cfg)
         gen = pipeline.make_generator(cfg2, fields, filt,
                                       nsteps=cfg.streaming_block,
@@ -98,6 +117,8 @@ def setup(ctx):
         torch.mm(X.T, X)
         del X, gen
     else:
+        if cfg.streaming_block:
+            cfg = dataclasses.replace(cfg, nsteps=cfg.streaming_block)
         res = pipeline.run_pipeline(cfg, device=ctx.device,
                                     write_outputs=False)
         del res
@@ -132,7 +153,7 @@ def one_model(ctx, state, i):
 def window(state, ctx, run):
     """Whole models back to back until the first model boundary after
     ``ctx.seconds``, or until the next model would take the run's files
-    past the disk cap."""
+    past the disk cap (rank 0's clock and files, in a job)."""
     written = dir_bytes(ctx.outdir)
     t0 = time.perf_counter()
     i = 0
@@ -141,16 +162,21 @@ def window(state, ctx, run):
         run.units.append(unit)
         written += unit["bytes"]
         run.elapsed = time.perf_counter() - t0
-        if run.elapsed >= ctx.seconds:
-            run.ended_by = "time"
-            break
-        if written + unit["bytes"] > ctx.disk_cap:
-            run.ended_by = "disk cap"
+        ended = ("time" if run.elapsed >= ctx.seconds else
+                 "disk cap" if written + unit["bytes"] > ctx.disk_cap else "")
+        ended = ctx.decide(ended)
+        if ended:
+            run.ended_by = ended
             break
         i += 1
     run.bytes_written = written
     run.info["model walls (s)"] = [round(u["wall"], 4) for u in run.units]
     run.info["bytes per model"] = [u["bytes"] for u in run.units]
+    if state.mesh is not None:
+        m = state.mesh
+        run.info["mesh"] = (f"{m.shard_time}x{m.shard_space}, backend "
+                            f"{m.backend}, rank -> device " + ", ".join(
+                                f"{r}: {d}" for r, d in enumerate(m.devices)))
 
 
 def release(state):

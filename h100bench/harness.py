@@ -11,6 +11,16 @@ found by name, so that a later change adds files and never edits one:
 * ``metrics/<metric>.py``: ``read(run)`` for each metric, None where it
   finds nothing to read.
 
+A configuration's ``sizes`` may state a mesh (``shard_time``,
+``shard_space``); its product is the ``chips`` of every cell that runs the
+configuration.  A cell on one card runs in this process alone.  A cell on
+N cards is a job of N processes, one a card (``job.py``): this process is
+rank 0, every rank runs the entry's ``setup``, ``window`` and ``release``,
+and rank 0 alone runs ``check`` and prints the result.  Of such a run,
+``setup_s`` waits for the slowest rank's set-up, the memory peaks are the
+fullest card's, ``device.busy_s`` is the mean over the ranks, and the
+per-layer metrics read rank 0's trace, spans and counters.
+
 The program is ``pods_digital_filter_tpu_torch``; nothing here or in a file
 that is found here imports JAX or the JAX package.
 """
@@ -25,6 +35,7 @@ import shutil
 import sys
 import tempfile
 import time
+import traceback
 from dataclasses import dataclass, field
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -77,6 +88,12 @@ class Cell:
         return self.traffic["entry"]
 
 
+def mesh_size(sizes):
+    """The cards a configuration's mesh takes: ``shard_time *
+    shard_space``, each 1 where absent."""
+    return int(sizes.get("shard_time", 1)) * int(sizes.get("shard_space", 1))
+
+
 def _applies(metric, cell):
     return "workloads" not in metric or cell in metric["workloads"]
 
@@ -92,9 +109,15 @@ def find_cell(name, bench=None, root=ROOT):
     conf = {c["name"]: c for c in bench["configs"]}[w["config"]]
     here = os.path.join(root, "h100bench")
     extra = load_json(os.path.join(here, "cells", name + ".json"))
+    config = load_json(os.path.join(root, conf["file"]))
+    if mesh_size(config.get("sizes", {})) != int(w["chips"]):
+        raise ValueError(
+            f"workload {name!r} asks for {w['chips']} card(s); the mesh of "
+            f"configuration {w['config']!r} takes "
+            f"{mesh_size(config.get('sizes', {}))}")
     return Cell(
         name=name, chips=int(w["chips"]),
-        config=load_json(os.path.join(root, conf["file"])),
+        config=config,
         traffic=load_json(os.path.join(here, "traffic",
                                        w["traffic"] + ".json")),
         limits=extra["limits"],
@@ -130,6 +153,12 @@ class Context:
     device: str
     outdir: str
     disk_cap: int = 3 * GIB
+    job: object = None        # a cell over several cards: this rank's Job
+
+    def decide(self, value):
+        """Rank 0's ``value`` on every rank (``value`` on one card): where
+        the window ends, so that every rank runs the same units."""
+        return value if self.job is None else self.job.decide(value)
 
 
 @dataclass
@@ -176,7 +205,7 @@ def device_info(device, run):
     import torch
 
     if torch.device(device).type != "cuda":
-        return {"platform": "cpu", "kind": "cpu", "count": 1,
+        return {"platform": "cpu", "kind": "cpu", "count": run.cell.chips,
                 "memory_peak_bytes": 0}
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": run.cell.chips, "memory_peak_bytes": int(run.run_peak)}
@@ -184,16 +213,24 @@ def device_info(device, run):
 
 def measure(ctx, t_start):
     """Set up, warm and run one window of the cell; judge it.  Returns
-    ``(run, numbers)``; ``numbers`` maps each compared name to its value."""
+    ``(run, numbers)``; ``numbers`` maps each compared name to its value.
+
+    In a job (``ctx.job``) every rank comes here: set-up ends at a barrier,
+    each rank's peaks and busy time are gathered into rank 0's ``run``
+    (``merge``), the job is closed once the program's state is released,
+    and only rank 0 runs the check (the others return no numbers)."""
     import torch
 
     from h100bench import trace as tracing
 
+    job = ctx.job
     entry = entry_module(ctx.cell.entry)
     state = entry.setup(ctx)
     cuda = torch.device(ctx.device).type == "cuda"
     if cuda:
         torch.cuda.synchronize()
+    if job is not None:
+        job.barrier()
     run = Run(cell=ctx.cell)
     run.setup_s = time.perf_counter() - t_start
     if cuda:
@@ -207,11 +244,36 @@ def measure(ctx, t_start):
         torch.cuda.synchronize()
         run.window_peak = torch.cuda.max_memory_allocated()
         run.run_peak = max(setup_peak, run.window_peak)
+    if job is not None:
+        where = f"cuda:{torch.cuda.current_device()}" if cuda else ctx.device
+        mine = dict(rank=job.rank, device=where, window_peak=run.window_peak,
+                    run_peak=run.run_peak,
+                    busy_s=None if run.trace is None else run.trace.busy_s)
+        merge(run, job.gather(mine))
     entry.release(state)
     if cuda:
         torch.cuda.empty_cache()
+    if job is not None:
+        job.close()
+        if job.rank:
+            return run, {}
     numbers = entry.check(state, ctx, run)
     return run, numbers
+
+
+def merge(run, ranks):
+    """Rank 0's ``run`` takes the fullest card's peaks and the mean of the
+    ranks' busy seconds; ``ranks`` holds one dict a rank, in rank order."""
+    run.window_peak = max(r["window_peak"] for r in ranks)
+    run.run_peak = max(r["run_peak"] for r in ranks)
+    busy = [r["busy_s"] for r in ranks]
+    if run.trace is not None and None not in busy:
+        run.trace.busy_s = sum(busy) / len(busy)
+    run.info["ranks"] = [
+        f"{r['rank']}: {r['device']}, window peak {r['window_peak']} B, run "
+        f"peak {r['run_peak']} B" + ("" if r["busy_s"] is None else
+                                     f", busy {r['busy_s']} s")
+        for r in ranks]
 
 
 def read_metrics(run, metrics):
@@ -247,26 +309,83 @@ def main(argv=None, t_start=None):
     p.add_argument("--seed", type=int, required=True)
     p.add_argument("--seconds", type=float, required=True)
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    # a rank > 0 of a job, started by rank 0 (job.py)
+    p.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--job", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
 
+    if args.job is not None:
+        return rank_main(args, t_start)
     cell = find_cell(args.workload)
     try:
         check_device(cell.chips)
     except Refused as e:
         print(f"refused: {e}", file=sys.stderr)
         return 2
+    return run_cell(cell, args, "cuda", t_start)
+
+
+def _argv(args):
+    """The flags of a run, for the other ranks of its job."""
+    return ["--workload", args.workload, "--seed", str(args.seed),
+            "--seconds", repr(args.seconds), "--trace", str(args.trace)]
+
+
+def run_cell(cell, args, device, t_start):
+    """Run the cell once on ``device`` and print its result: in this
+    process on one card, or as rank 0 of a job of ``cell.chips`` ranks
+    that run this checkout's ``run.py``."""
     tmp = tempfile.mkdtemp(prefix="h100bench-")
+    job = None
     try:
+        if cell.chips > 1:
+            from h100bench.job import Job
+
+            job = Job.start(ROOT, _argv(args), cell.chips, device,
+                            args.seconds, cleanup=[tmp])
         ctx = Context(cell=cell, seed=args.seed, seconds=args.seconds,
-                      trace=bool(args.trace), device="cuda", outdir=tmp)
+                      trace=bool(args.trace), device=device, outdir=tmp,
+                      job=job)
         run, numbers = measure(ctx, t_start)
         found = forbidden_modules()
         if found:
             print(f"refused: the process loaded {found}", file=sys.stderr)
             return 3
         return report(run, numbers, cell, args.trace, ctx.device)
+    except BaseException:
+        if job is not None and not job.closed:
+            traceback.print_exc()
+            job.fail("rank 0 raised")
+        raise
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def rank_main(args, t_start):
+    """A rank > 0 of a job: the same cell, seed, seconds and trace flag as
+    rank 0, on the device rank 0 names; its output goes to its log."""
+    from h100bench.job import Job
+
+    tmp = tempfile.mkdtemp(prefix="h100bench-")
+    try:
+        job = Job.join(args.rank, args.job)
+        ctx = Context(cell=find_cell(args.workload), seed=args.seed,
+                      seconds=args.seconds, trace=bool(args.trace),
+                      device=job.device, outdir=tmp, job=job)
+        measure(ctx, t_start)
+    except BaseException:
+        # exit at once: a process group whose peers are gone can hold the
+        # interpreter's exit for the collective timeout
+        traceback.print_exc()
+        shutil.rmtree(tmp, ignore_errors=True)
+        sys.stderr.flush()
+        os._exit(1)
+    shutil.rmtree(tmp, ignore_errors=True)
+    found = forbidden_modules()
+    if found:
+        print(f"refused: rank {args.rank} loaded {found}", file=sys.stderr)
+        return 3
+    return 0
 
 
 def report(run, numbers, cell, trace, device):

@@ -6,7 +6,13 @@ Philox noise stream.  Frozen copies, each naming what it copies, hold the
 semantics that cannot be derived otherwise:
 
 * the Philox4x32-10 stream, its counters and its float conversion:
-  ``pods_digital_filter_tpu_torch/ops/philox.py:24-79``;
+  ``pods_digital_filter_tpu_torch/ops/philox.py:24-79`` (K1's, where the
+  configuration turns ``pallas`` on);
+* the torch-ops generator's stream, one ``torch.Generator`` a slab seeded
+  by a splitmix64 mix of ``(seed, slab)``, and its float conversion:
+  ``pods_digital_filter_tpu_torch/ops/filters.py:53-88`` (where ``pallas``
+  is off or absent, as on every sharded path; it depends on the device
+  type, so the reference draws it on the program's);
 * the Gaussian taps: ``pods_digital_filter_tpu_torch/ops/filters.py:31-40``;
 * the tanh / top-hat profile, its clamp and the 1-D plane layout:
   ``pods_digital_filter_tpu_torch/models/profiles.py:39-77, 112-125``;
@@ -15,7 +21,8 @@ semantics that cannot be derived otherwise:
 * the rotation onto the plane normal:
   ``pods_digital_filter_tpu_torch/ops/rotation.py:17-47``.
 
-Snapshot ``s`` of the window reads noise slabs ``s .. s + 2 nfx``; the
+Snapshot ``s`` of the window reads noise slabs ``s .. s + 2 nfx``, the
+same in either stream, and however a mesh splits the window; the
 packed row of component ``c`` at plane point ``(j, k)`` is
 ``c * jma * kma + j * kma + k``.  Imports torch and numpy only.
 """
@@ -72,6 +79,33 @@ def noise(seed, comp, t0, num_slabs, jn, kn, device):
     return out
 
 
+def slab_seed(seed, slab):
+    """The seed of the generator that draws slab ``slab``."""
+    mask = (1 << 64) - 1
+    z = ((seed & mask) * 0x9E3779B97F4A7C15 + (slab & mask)) & mask
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & mask
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & mask
+    return (z ^ (z >> 31)) & ((1 << 63) - 1)
+
+
+def torch_noise(seed, comp, t0, num_slabs, jn, kn, device):
+    """float32 noise ``(num_slabs, jn, kn)`` of component ``comp`` in the
+    torch-ops stream: slab ``t0 + s`` is component ``comp`` of
+    ``torch.rand((3, jn, kn))`` from a generator on ``device`` seeded with
+    ``slab_seed(seed, t0 + s)``, times ``2 sqrt 3``, less ``sqrt 3``, in
+    float32."""
+    pdfr = float(np.sqrt(3.0))
+    out = torch.empty((num_slabs, jn, kn), dtype=torch.float32,
+                      device=device)
+    g = torch.Generator(device=device)
+    for s in range(num_slabs):
+        g.manual_seed(slab_seed(seed, t0 + s))
+        u = torch.rand((3, jn, kn), generator=g, dtype=torch.float32,
+                       device=device)
+        out[s] = u[comp].mul_(2.0 * pdfr).sub_(pdfr)
+    return out
+
+
 def taps(n, ln):
     k = np.arange(2 * n + 1, dtype=np.float64) - n
     a = np.exp(-np.pi * k * k / (2.0 * ln * ln))
@@ -121,7 +155,9 @@ class Inlet:
 
     ``conf`` holds the configuration file's ``sizes``: ``jma``, ``kma``,
     ``nsteps``, ``res``, ``lengthscale``, ``fwidth``, ``U0``, ``u_dash``,
-    ``normal``, ``mean_profile``, ``turb_profile``."""
+    ``normal``, ``mean_profile``, ``turb_profile``, and ``pallas``, which
+    picks the noise stream; the rest (the mesh, the streaming block) do not
+    change the snapshots."""
 
     def __init__(self, conf, device):
         if (conf["mean_profile"], conf["turb_profile"]) != (
@@ -129,6 +165,7 @@ class Inlet:
             raise ValueError("the reference holds the tanh / top-hat "
                              "profile only")
         self.device = torch.device(device)
+        self.noise = noise if conf.get("pallas", False) else torch_noise
         self.jma, self.kma = int(conf["jma"]), int(conf["kma"])
         ln, fw = float(conf["lengthscale"]), float(conf["fwidth"])
         self.nf = int(math.ceil(fw * ln))
@@ -167,8 +204,8 @@ class Inlet:
 
     def _component(self, seed, comp, t0, n):
         nf, dev = self.nf, self.device
-        x = noise(seed, comp, t0, n + 2 * nf, self.jma + 2 * nf,
-                  self.kma + 2 * nf, dev).to(torch.float64)
+        x = self.noise(seed, comp, t0, n + 2 * nf, self.jma + 2 * nf,
+                       self.kma + 2 * nf, dev).to(torch.float64)
         x = torch.matmul(x, self.Bz.T)
         x = torch.matmul(self.By, x)                 # (n + 2nf, jma, kma)
         Bt = band(self.t, n, dev)                    # (n, n + 2nf)

@@ -68,6 +68,8 @@ def test_every_cell_reports_what_it_needs():
             assert m["moves"] in {x["name"] for x in cell.end_to_end}
             assert m["moves"] in e2e
         assert cell.limits
+        # the configuration's mesh takes the cell's cards
+        assert harness.mesh_size(cell.config["sizes"]) == w["chips"]
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -95,11 +97,13 @@ def test_sizes_agree_with_the_program_flags():
     from pods_digital_filter_tpu_torch import cli
 
     pipeline = harness.entry_module("pipeline")
-    for c in BENCH["configs"]:
-        data = harness.load_json(os.path.join(ROOT, c["file"]))
+    sizes = [harness.load_json(os.path.join(ROOT, c["file"]))["sizes"]
+             for c in BENCH["configs"]]
+    # a mesh, as a configuration over several cards states it
+    sizes.append(dict(sizes[0], pallas=False, shard_time=2, shard_space=2))
+    for s in sizes:
         cfg = cli.config_from_args(cli.build_parser().parse_args(
-            pipeline.program_args(data["sizes"])))
-        s = data["sizes"]
+            pipeline.program_args(s)))
         assert (cfg.plane.jma, cfg.plane.kma, cfg.nsteps) == (
             s["jma"], s["kma"], s["nsteps"])
         assert cfg.plane.res == s["res"] and cfg.dtype == s["dtype"]
@@ -116,6 +120,57 @@ def test_sizes_agree_with_the_program_flags():
         assert cfg.gram_group == s.get("gram_group", 1)
         assert cfg.use_pallas == s.get("pallas", False)
         assert cfg.eig_mode == s.get("eig_mode", "auto")
+        assert (cfg.shard_time, cfg.shard_space) == (
+            s.get("shard_time", 1), s.get("shard_space", 1))
+
+
+#: each configuration's flags as the benchmark made them before a mesh
+#: could be stated: a configuration without one makes the same argv
+ARGV = {
+    "inlet1024x512_ns10240": [
+        "-j", "1024", "-k", "512", "-n", "10240", "-r", "0.1", "-l", "4.0",
+        "-f", "2.0", "--U0", "1.0", "--u_dash", "0.02", "--nx", "1.0",
+        "--ny", "0.0", "--nz", "0.0", "-p", "hyperbolic-tangent",
+        "--turb_profile", "top-hat", "-m", "20", "-e", "0.9", "--dtype",
+        "float32", "--streaming_block", "512", "--gram_group", "8",
+        "--pallas", "--eig_mode", "topk"],
+    "inlet512x512_ns1024": [
+        "-j", "512", "-k", "512", "-n", "1024", "-r", "0.1", "-l", "4.0",
+        "-f", "2.0", "--U0", "1.0", "--u_dash", "0.02", "--nx", "1.0",
+        "--ny", "0.0", "--nz", "0.0", "-p", "hyperbolic-tangent",
+        "--turb_profile", "top-hat", "-m", "20", "-e", "0.9", "--dtype",
+        "float32", "--pallas"]}
+
+
+@pytest.mark.parametrize("name", sorted(ARGV))
+def test_program_args_as_before(name):
+    pipeline = harness.entry_module("pipeline")
+    conf = {c["name"]: c for c in BENCH["configs"]}[name]
+    sizes = harness.load_json(os.path.join(ROOT, conf["file"]))["sizes"]
+    assert pipeline.program_args(sizes) == ARGV[name]
+
+
+def test_a_mesh_that_is_not_the_cells_cards_is_refused(tmp_path):
+    """A configuration whose mesh takes 2 cards, run by a one-card cell, is
+    refused when the cell is found."""
+    shutil.copytree(os.path.join(ROOT, "h100bench"), tmp_path / "h100bench",
+                    ignore=shutil.ignore_patterns("_cache", "__pycache__"))
+    bench = json.loads(json.dumps(BENCH))
+    conf = harness.load_json(os.path.join(
+        ROOT, "h100bench/configs/inlet512x512_ns1024.json"))
+    conf["sizes"].update(pallas=False, shard_space=2)
+    (tmp_path / "h100bench/configs/mesh2.json").write_text(json.dumps(conf))
+    bench["configs"].append({"name": "mesh2", "source": "a mesh of 2",
+                             "file": "h100bench/configs/mesh2.json",
+                             "reduced": [], "why": "a mesh of 2"})
+    for chips in (1, 4):
+        bench["workloads"].append({"name": f"mesh2.c{chips}",
+                                   "config": "mesh2", "traffic": "models",
+                                   "chips": chips, "why": "a mesh of 2"})
+        shutil.copy(os.path.join(ROOT, "h100bench/cells/main512.inmem.json"),
+                    tmp_path / f"h100bench/cells/mesh2.c{chips}.json")
+        with pytest.raises(ValueError, match="mesh"):
+            harness.find_cell(f"mesh2.c{chips}", bench, root=str(tmp_path))
 
 
 def test_a_size_with_no_flag_is_refused():
@@ -139,7 +194,7 @@ def test_a_cell_added_by_files_alone(tmp_path):
                                "chips": 1, "why": "a throwaway cell"})
     bench["per_layer"].append({"name": "models_in_window", "unit": "models",
                                "better": "higher", "source": "host_clock",
-                               "layer": "pipeline", "moves": "model_s",
+                               "layer": "pipeline", "moves": "setup_s",
                                "workloads": ["main512.models2"]})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     (root / "h100bench/traffic/models2.json").write_text(json.dumps(

@@ -49,22 +49,37 @@ def test_profile_and_dt():
                                   np.asarray(fields.uu))
 
 
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 40 + 5])
+def test_torch_noise_is_the_programs_stream(seed):
+    from pods_digital_filter_tpu_torch.ops import filters
+
+    assert all(ref.slab_seed(seed, s) == filters.slab_seed(seed, s)
+               for s in (0, 1, 2 ** 31 + 3))
+    want = filters.noise_slabs(seed, 3, 5, 9, 13, 3, torch.float32, "cpu")
+    for c in range(3):
+        got = ref.torch_noise(seed, c, 3, 5, 9, 13, "cpu")
+        assert torch.equal(got, want[c])
+
+
+@pytest.mark.parametrize("pallas", [True, False], ids=["k1", "torch_ops"])
 @pytest.mark.parametrize("normal", [(1.0, 0.0, 0.0), (0.6, 0.0, 0.8)])
-def test_block_is_the_programs_generator(normal):
+def test_block_is_the_programs_generator(normal, pallas):
     """Snapshots 8..27 of the reference against the program's generator
-    (K1's plain version, f32) at f32 rounding."""
+    (K1's plain version with ``pallas``, else the torch-ops generator, f32)
+    at f32 rounding."""
     from pods_digital_filter_tpu_torch import cli, pipeline
 
     argv = ["-j", "24", "-k", "20", "-n", "40", "-l", "2", "-f", "2",
-            "--pallas", "--seed", "99", "--device", "cpu",
+            "--seed", "99", "--device", "cpu",
             "--nx", str(normal[0]), "--ny", str(normal[1]),
-            "--nz", str(normal[2])]
+            "--nz", str(normal[2])] + (["--pallas"] if pallas else [])
     cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
     fields, _, filt, cfg, rotate = pipeline.resolve_profile(cfg)
     gen = pipeline.make_generator(cfg, fields, filt, nsteps=20,
                                   rotate=rotate, device="cpu")
     want = gen(8).double()
-    got = ref.Inlet(dict(CONF, normal=normal), "cpu").block(99, 8, 20)
+    got = ref.Inlet(dict(CONF, normal=normal, pallas=pallas),
+                    "cpu").block(99, 8, 20)
     assert got.shape == want.shape
     assert float((got - want).abs().max()) < 1e-6 * float(want.abs().max())
 

@@ -2,6 +2,7 @@
 CPU, at a tiny size, the card's look skipped)."""
 
 import math
+import shutil
 
 import pytest
 
@@ -87,3 +88,24 @@ def test_kernel_seconds_within_stages():
                                            "streaming_projection"))
     assert n == 3 and abs(s - 3e-3) < 1e-12
     assert tr.kernel_seconds(gemm, stages=("streaming_mean",)) == (0, 0)
+
+
+def test_model_s_reads_any_entry_of_whole_models(tmp_path, monkeypatch):
+    """``model_s`` (and ``model_s.stream`` and ``model_s.window``, which
+    delegate) reads a window of an entry that declares whole models,
+    whatever its name, and nothing where an entry's units are calls or
+    undeclared."""
+    here = tmp_path / "h100bench"
+    shutil.copytree(harness.HERE, here,
+                    ignore=shutil.ignore_patterns("_cache", "__pycache__"))
+    (here / "entries/sharded_models.py").write_text('UNITS = "models"\n')
+    (here / "entries/undeclared.py").write_text("")
+    monkeypatch.setattr(harness, "HERE", str(here))
+    cell = tiny_cell("main512.inmem")
+    run = harness.Run(cell=cell, elapsed=6.0, units=[{}, {}, {}])
+    for entry, want in (("sharded_models", 2.0), ("pipeline", 2.0),
+                        ("compress", 2.0), ("replay", None),
+                        ("undeclared", None)):
+        cell.traffic = {"entry": entry}
+        for name in ("model_s", "model_s.stream", "model_s.window"):
+            assert harness.metric_reader(name).read(run) == want, entry
