@@ -2,7 +2,9 @@
 
 The device half (Gram matrix, centring, the projection onto the truncated
 modes) is torch on the snapshot matrix's device.  The eigen half stays on
-the host in float64 numpy, as in the original (``eigh_desc``): the helpers
+the host in float64 numpy, as in the original (``eigh_desc``), except in
+the sharded in-memory POD, whose rank 0 solves on its card
+(:func:`temporal_from_gram_device`, the same semantics): the helpers
 below, from ``count_valid_modes`` to ``temporal_from_gram``, are numpy
 copies of the original's (that module imports jax), with the streaming
 POD's ``resolve_num_vectors``, ``finalize_spectrum`` and
@@ -231,6 +233,40 @@ def temporal_from_gram(C, ns: int, num_modes_trunc: int, tol_cn: float,
                              / np.where(mag > 0, mag, 1.0)), 1.0)
     temporal[:, :nv] *= scale[None, :]
     return energy, temporal, num_valid, num_modes_trunc
+
+
+def temporal_from_gram_device(C: torch.Tensor, ns: int, num_modes_trunc: int,
+                              tol_cn: float, full_basis: bool = False):
+    """:func:`temporal_from_gram` with the eigen solve on ``C``'s device:
+    every eigenpair from one float64 ``torch.linalg.eigh`` of the
+    symmetrised Gram (cuSOLVER on a card, LAPACK on the CPU).  Only the
+    spectrum and the columns kept come to the host, where the host helpers
+    apply the reference's semantics: :func:`finalize_spectrum`'s NaN
+    handling, sort, valid count and truncation, the column order and
+    zeroed NaN columns of :func:`sort_eigenvalues_desc`, and
+    :func:`scale_temporal_leading`.
+
+    Returns ``(energy, temporal, num_valid, num_trunc)`` as host numpy:
+    ``temporal`` the scaled leading ``num_trunc`` columns, or with
+    ``full_basis`` the whole basis (its first ``num_valid`` columns scaled,
+    as :func:`temporal_from_gram` returns it)."""
+    Cd = C.to(torch.float64)
+    Cd = (Cd + Cd.T) * 0.5
+    e, v = torch.linalg.eigh(Cd)
+    del Cd
+    e_desc = to_numpy(e)[::-1]
+    energy, num_valid, num_trunc = finalize_spectrum(e_desc, tol_cn,
+                                                     num_modes_trunc)
+    bad = ~np.isfinite(e_desc)
+    order = np.argsort(-np.where(bad, -1.0e10, e_desc), kind="stable")
+    keep = order if full_basis else order[:num_trunc]
+    cols = torch.as_tensor(e.shape[0] - 1 - keep, device=v.device)
+    temporal = to_numpy(v.index_select(1, cols))
+    temporal[:, bad[keep]] = 0.0
+    nv = min(num_valid, temporal.shape[1])
+    temporal[:, :nv] = scale_temporal_leading(temporal[:, :nv], energy[:nv],
+                                              ns)
+    return energy, temporal, num_valid, num_trunc
 
 
 def _spatial_modes(A: torch.Tensor, T_scaled: torch.Tensor,

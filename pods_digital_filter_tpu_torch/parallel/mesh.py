@@ -25,6 +25,13 @@ refuses to run ("Duplicate GPU detected").  Gloo takes no CUDA tensor in
 staged through a host copy inside the collective methods.  The choice
 follows from the ranks' ``(host, device)`` layout alone.
 
+**Spans.**  Every collective is a span of :mod:`..utils.timing` named
+``mesh.<method>`` (``mesh.exchange_t`` for :meth:`Mesh.exchange` along
+``'t'``; ``mesh.broadcast`` for both broadcasts) whose ``_bytes`` are the
+bytes of its result on this rank.  While a profiler records, each
+synchronizes the rank's card on entry and exit, so that its seconds are
+the transfer's and not the enqueue's.
+
 JAX's ``hard_sync`` is :func:`..device.synchronize`; its
 ``snapshot_sharding``/``field_sharding`` are the layout tuples
 :data:`SNAPSHOT` and :data:`FIELD`.
@@ -46,6 +53,7 @@ import torch
 import torch.distributed as dist
 
 from pods_digital_filter_tpu_torch.device import resolve_device
+from pods_digital_filter_tpu_torch.utils import timing
 
 #: seconds a collective (and the rendezvous) waits for a peer before it
 #: raises: a rank that dies ends the job within this time
@@ -111,23 +119,48 @@ class Mesh:
             x = x.cpu()
         return x.detach().contiguous()
 
+    def _span(self, what: str, nbytes: int):
+        return timing.span("mesh." + what, nbytes, self.device)
+
     def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """Sum of ``x`` over ``axis`` (may reuse ``x``'s storage)."""
         if self.size(axis) == 1:
             return x
         w = self._wire(x)
-        dist.all_reduce(w, group=self.groups[axis])
+        with self._span("all_reduce", _nbytes(w)):
+            dist.all_reduce(w, group=self.groups[axis])
         return w.to(x.device)
+
+    def _stacked(self, x: torch.Tensor, axis: str, what: str) -> torch.Tensor:
+        """The ranks' ``x`` along ``axis`` in one ``(size(axis), *x.shape)``
+        buffer on the wire's device (NCCL gathers into it; gloo fills its
+        slices)."""
+        w = self._wire(x)
+        out = torch.empty((self.size(axis),) + tuple(w.shape), dtype=w.dtype,
+                          device=w.device)
+        with self._span(what, _nbytes(out)):
+            if self.backend == "nccl":
+                dist.all_gather_into_tensor(out, w, group=self.groups[axis])
+            else:
+                dist.all_gather(list(out.unbind(0)), w,
+                                group=self.groups[axis])
+        return out
 
     def all_gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
         """The ranks' ``x`` along ``axis`` concatenated on ``dim`` in mesh
         order (every rank's ``x`` has the same shape)."""
         if self.size(axis) == 1:
             return x
-        w = self._wire(x)
-        parts = [torch.empty_like(w) for _ in range(self.size(axis))]
-        dist.all_gather(parts, w, group=self.groups[axis])
-        return torch.cat(parts, dim=dim).to(x.device)
+        out = self._stacked(x, axis, "all_gather")
+        return torch.cat(out.unbind(0), dim=dim).to(x.device)
+
+    def exchange(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The ranks' ``x`` along ``axis`` stacked in mesh order ->
+        ``(size(axis), *x.shape)`` on ``x``'s device, with no
+        concatenation."""
+        if self.size(axis) == 1:
+            return x[None]
+        return self._stacked(x, axis, "exchange_" + axis).to(x.device)
 
     def shift_s(self, to_right: torch.Tensor, to_left: torch.Tensor):
         """Neighbour exchange along ``'s'`` (not periodic): ``to_right``
@@ -144,10 +177,24 @@ class Mesh:
                         dist.P2POp(dist.irecv, got[peer_si], peer,
                                    self.groups["s"])]
         if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
+            with self._span("shift_s", sum(_nbytes(g) for g in got.values())):
+                for req in dist.batch_isend_irecv(ops):
+                    req.wait()
         back = lambda k: None if k not in got else got[k].to(to_right.device)
         return back(si - 1), back(si + 1)
+
+    def broadcast(self, x: torch.Tensor) -> torch.Tensor:
+        """Rank 0's ``x`` on every rank, on the device of each rank's ``x``:
+        every rank passes a tensor of rank 0's shape and dtype.  It goes
+        over the job's default group (gloo), staged through the host: meant
+        for small tensors (counts, a spectrum, a few columns)."""
+        _check_main_thread()
+        if self.backend == "none":
+            return x
+        w = x.detach().cpu().contiguous()
+        with self._span("broadcast", _nbytes(w)):
+            dist.broadcast(w, src=0)
+        return w.to(x.device)
 
     def broadcast_object(self, obj):
         """Rank 0's picklable ``obj`` on every rank."""
@@ -155,13 +202,20 @@ class Mesh:
         if self.backend == "none":
             return obj
         box = [obj if self.lead else None]
-        dist.broadcast_object_list(box, src=0)
+        with self._span("broadcast", 0):
+            dist.broadcast_object_list(box, src=0)
+        if timing.recording():
+            timing.count("mesh.broadcast_bytes", len(pickle.dumps(box[0])))
         return box[0]
 
     def barrier(self) -> None:
         _check_main_thread()
         if self.backend != "none":
             dist.barrier()
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 def _check_main_thread() -> None:

@@ -45,6 +45,11 @@ from pods_digital_filter_tpu_torch.pipeline import _DTYPES
 from pods_digital_filter_tpu_torch.streaming import (
     StreamingPODResult, _block_starts, eigen_half, make_gram_store,
     start_spectrum, streamed_gram)
+from pods_digital_filter_tpu_torch.utils import timing
+
+#: global steps of each call of the sharded generator that fills a rank's
+#: tile of the whole run (:func:`generate_tile`)
+GENERATE_WINDOW = 512
 
 
 @dataclass
@@ -104,6 +109,35 @@ def make_sharded_generator(cfg, fields, filt, mesh, block: int,
         return X
 
     return gen
+
+
+def generate_tile(cfg, fields, filt, mesh, rotate: bool = True,
+                  window: int = GENERATE_WINDOW) -> torch.Tensor:
+    """This rank's tile ``(3, nsteps / n_t, jma, kma / n_s)`` of the whole
+    run — the tile of ``make_sharded_generator(..., cfg.nsteps)(0)`` —
+    allocated once and filled ``window / n_t`` local steps at a time, so
+    that only one window's transients live beside it.
+
+    Each part is a call of :func:`make_sharded_generator` over a window of
+    ``c * n_t`` global steps, started where rank ``ti``'s share of it is
+    its own steps ``[ti * T_local + j0, + c)``: time blocks are independent
+    by construction, so every part is exact, and the ranks of an ``'s'``
+    row (the halo path's exchange partners) share their start.  A span
+    ``sharded.generate`` a part."""
+    nt = mesh.shard_time
+    bt, tk = shard_lib._check_divisible(cfg.nsteps, cfg.plane.kma, mesh)
+    step = max(1, min(window // nt, bt))
+    X = torch.empty((3, bt, cfg.plane.jma, tk), dtype=_DTYPES[cfg.dtype],
+                    device=mesh.device)
+    gens = {}
+    for j0 in range(0, bt, step):
+        c = min(step, bt - j0)
+        if c not in gens:
+            gens[c] = make_sharded_generator(cfg, fields, filt, mesh, c * nt,
+                                             rotate=rotate)
+        with timing.span("sharded.generate", device=mesh.device):
+            X[:, j0:j0 + c] = gens[c](mesh.ti * (bt - c) + j0)
+    return X
 
 
 def streaming_pod_sharded(

@@ -496,8 +496,10 @@ def _run_pipeline_sharded(cfg, fields, dt, filt, rotate, geom, timer,
                           files, write_outputs, mesh):
     """Mesh-sharded pipeline tail: generation over the ``('t', 's')`` mesh
     (the exact per-slab path — the serial values up to the rounding of the
-    tile-width products — or the halo-exchange path under ``--halo``) and
-    the distributed POD of :mod:`.parallel.pod`.
+    tile-width products — or the halo-exchange path under ``--halo``), one
+    window at a time into the rank's tile, and the distributed POD of
+    :mod:`.parallel.pod`, which centres the tile in place (so ``-v`` writes
+    the snapshots before it).
 
     ``PipelineResult.A`` is ``None``: the snapshot matrix stays split over
     the ranks and is never gathered (at the flagship scale it would not
@@ -506,24 +508,27 @@ def _run_pipeline_sharded(cfg, fields, dt, filt, rotate, geom, timer,
     from pods_digital_filter_tpu_torch.parallel import streaming as shard_streaming
 
     with timer.stage("generate_sharded"):
-        X = shard_streaming.make_sharded_generator(
-            cfg, fields, filt, mesh, cfg.nsteps, rotate=rotate)(0)
+        X = shard_streaming.generate_tile(cfg, fields, filt, mesh,
+                                          rotate=rotate)
         synchronize(mesh.device)
-
-    with timer.stage("pod"):
-        dp = dist_pod.distributed_pod(X, mesh, cfg.podfs.num_modes,
-                                      cfg.podfs.tol_cn)
-        pr = pod.PODResult(
-            energy=dp.energy, temporal_modes=dp.temporal_modes,
-            spatial_modes=dp.spatial_modes_packed(),
-            num_valid=dp.num_valid, num_trunc=dp.num_trunc)
-        mean_host = dp.mean_packed()
 
     if cfg.verbose and write_outputs:
         with timer.stage("write_snapshots"):
             files.extend(shard_streaming.write_snapshot_tiles(
                 cfg, geom, dt, X, mesh))
-    del X
+
+    with timer.stage("pod"):
+        dp = dist_pod.distributed_pod(X, mesh, cfg.podfs.num_modes,
+                                      cfg.podfs.tol_cn,
+                                      keep_basis=cfg.verbose)
+        del X
+        pr = pod.PODResult(
+            energy=dp.energy,
+            temporal_modes=(dp.temporal_modes if dp.temporal_basis is None
+                            else dp.temporal_basis),
+            spatial_modes=dp.spatial_modes_packed(),
+            num_valid=dp.num_valid, num_trunc=dp.num_trunc)
+        mean_host = dp.mean_packed()
 
     with timer.stage("fourier"):
         fr = fourier.fourier_compress(

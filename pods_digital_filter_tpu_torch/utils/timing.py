@@ -11,7 +11,11 @@
   it returns a shared ``nullcontext`` after one flag check.  Every
   ``StageTimer`` stage is a span, so the program's stages appear in every
   trace under ``stage:<name>``; spans below a stage take dotted
-  ``layer.what`` names.
+  ``layer.what`` names.  A span given a CUDA ``device`` synchronizes it
+  on entry and on exit while recording, so that its seconds are those of
+  the device work queued inside it (a collective or a product returns to
+  the host before the card is done); it costs nothing when no profiler
+  records.
 * :func:`count` adds to a counter under the same switch; :func:`counts`
   copies the counters and :func:`reset_counts` clears them.  Counters are
   global and thread-safe (one lock, taken only while recording), so they
@@ -27,6 +31,7 @@ import threading
 import time
 from collections import OrderedDict
 
+import torch
 import torch.autograd.profiler as _profiler
 
 #: prefix of every span's ``record_function`` name
@@ -43,18 +48,22 @@ def _add(name: str, n) -> None:
 
 
 class _Span:
-    __slots__ = ("name", "nbytes", "rf", "t0")
+    __slots__ = ("name", "nbytes", "device", "rf", "t0")
 
-    def __init__(self, name: str, nbytes):
-        self.name, self.nbytes = name, nbytes
+    def __init__(self, name: str, nbytes, device=None):
+        self.name, self.nbytes, self.device = name, nbytes, device
 
     def __enter__(self):
+        if self.device is not None:
+            torch.cuda.synchronize(self.device)
         self.rf = _profiler.record_function(PREFIX + self.name)
         self.rf.__enter__()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
+        if self.device is not None and exc[0] is None:
+            torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - self.t0
         self.rf.__exit__(*exc)
         with _lock:
@@ -67,12 +76,19 @@ class _Span:
         return False
 
 
-def span(name: str, nbytes: int = 0):
+def span(name: str, nbytes: int = 0, device=None):
     """A context manager around a piece of work named ``name``; see the
     module's docstring."""
     if not _profiler._is_profiler_enabled:
         return _OFF
-    return _Span(name, int(nbytes))
+    if device is not None and torch.device(device).type != "cuda":
+        device = None
+    return _Span(name, int(nbytes), device)
+
+
+def recording() -> bool:
+    """Whether a profiler records (spans and counters count only then)."""
+    return bool(_profiler._is_profiler_enabled)
 
 
 def count(name: str, n) -> None:

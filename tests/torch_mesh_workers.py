@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from pods_digital_filter_tpu_torch import cli as tcli
 from pods_digital_filter_tpu_torch import config as tconfig
 from pods_digital_filter_tpu_torch.parallel import mesh as mesh_lib
 from pods_digital_filter_tpu_torch.parallel import pod as dpod
@@ -38,6 +39,23 @@ HALO_EXACT = dict(seed=5, t0=3, nsteps=8, **GEN)
 F64 = torch.float64
 #: seconds a spawned mesh may run before its test fails
 DEADLINE_S = 240
+#: local steps a chunk of the exchanged Gram: 3 does not divide the 8-step
+#: tile of ``pod_fields`` over t = 2, 4 does, 8 is the whole tile
+GRAM_CHUNKS = (3, 4, 8)
+#: the chunk of the distributed POD held to JAX's: three exchanges, the last
+#: of 2 steps
+POD_CHUNK = 3
+#: global windows of the chunked generation of a 6-step tile over t = 2:
+#: parts of 2 steps (dividing it) and of 5 (not dividing it)
+GENERATE_WINDOWS = (4, 10)
+#: a tiny in-memory 2 x 2 model that the benchmark's plain reference
+#: judges, as a configuration's ``sizes`` state it (float32, torch-ops
+#: generator)
+JUDGED = dict(jma=12, kma=8, nsteps=32, res=0.1, lengthscale=1.5,
+              fwidth=2.0, U0=1.0, u_dash=0.02, normal=(1.0, 0.0, 0.0),
+              mean_profile="hyperbolic-tangent", turb_profile="top-hat",
+              num_modes=4, energy_target=0.9, dtype="float32", pallas=False)
+JUDGED_SEED = 2 ** 40 + 17
 
 
 def launch(case, shape, outdir, *args):
@@ -58,6 +76,31 @@ def cfg(outdir, nsteps=16, jma=9, kma=8, ln=2.0, modes=5, et=0.9, **kw):
         nsteps=nsteps, outdir=str(outdir), dtype="float64")
     d.update(kw)
     return tconfig.PipelineConfig(**d)
+
+
+def judged_config(outdir, shard_time=1, shard_space=1):
+    """:data:`JUDGED` through the CLI's parser, as the benchmark runs a
+    configuration."""
+    s = JUDGED
+    argv = ["-j", str(s["jma"]), "-k", str(s["kma"]), "-n", str(s["nsteps"]),
+            "-r", str(s["res"]), "-l", str(s["lengthscale"]),
+            "-f", str(s["fwidth"]), "--U0", str(s["U0"]),
+            "--u_dash", str(s["u_dash"]), "-p", s["mean_profile"],
+            "--turb_profile", s["turb_profile"], "-m", str(s["num_modes"]),
+            "-e", str(s["energy_target"]), "--dtype", s["dtype"],
+            "--shard_time", str(shard_time), "--shard_space",
+            str(shard_space), "--outdir", str(outdir), "--seed",
+            str(JUDGED_SEED), "--device", "cpu"]
+    for flag, v in zip(("--nx", "--ny", "--nz"), s["normal"]):
+        argv += [flag, str(v)]
+    return tcli.config_from_args(tcli.build_parser().parse_args(argv))
+
+
+def _bf16_gram(real):
+    """``gram_fields`` on operands rounded to bfloat16: a Gram about as far
+    off as TF32 products make it."""
+    r = lambda x: x.to(torch.bfloat16).to(x.dtype)
+    return lambda Xi, Xj: real(r(Xi), r(Xj))
 
 
 def pod_fields(ns=16, jma=6, kma=8):
@@ -136,10 +179,12 @@ def sharding_case(shard_time, shard_space, outdir, parts):
         out["kma_9"] = _raises(lambda: sharding.generate_sharded(
             0, mesh, 0, 8, **{**GEN, "kma": 9}))
         out["thread"] = _thread_collective(mesh)
-    if "pod" in parts:
+    for part, kw in (("pod", {}), ("pod_chunked", dict(chunk=POD_CHUNK))):
+        if part not in parts:
+            continue
         X = mesh_lib.put_global(pod_fields(), mesh, mesh_lib.FIELD)
-        res = dpod.distributed_pod(X, mesh, num_modes_trunc=6)
-        out["pod"] = dict(
+        res = dpod.distributed_pod(X, mesh, num_modes_trunc=6, **kw)
+        out[part] = dict(
             energy=res.energy, num_valid=res.num_valid,
             num_trunc=res.num_trunc, modes=res.spatial_modes_packed(),
             mean=res.mean_packed(),
@@ -148,6 +193,66 @@ def sharding_case(shard_time, shard_space, outdir, parts):
     if "gram" in parts:
         A = mesh_lib.put_global(gram_input(), mesh, mesh_lib.SNAPSHOT)
         out["gram"] = sharding.distributed_gram(A, 16, mesh).numpy()
+    if "chunked_gram" in parts:
+        X = mesh_lib.put_global(pod_fields(), mesh, mesh_lib.FIELD)
+        grams = {c: dpod.distributed_gram_fields(X, mesh, c).numpy()
+                 for c in GRAM_CHUNKS}
+        out["chunked_gram"] = dict(grams=grams, ranks_same=len(set(_gather(
+            b"".join(g.tobytes() for g in grams.values())))) == 1)
+    if "chunked_generation" in parts:
+        diffs = {}
+        for halo in (False, True):
+            c = cfg(outdir, nsteps=12, jma=6, kma=8, dtype="float32",
+                    halo_exchange=halo)
+            fields, _, filt, c2, rotate = resolve_profile(c)
+            whole = sstream.make_sharded_generator(
+                c2, fields, filt, mesh, c2.nsteps, rotate=rotate)(0)
+            for w in GENERATE_WINDOWS:
+                part = sstream.generate_tile(c2, fields, filt, mesh,
+                                             rotate=rotate, window=w)
+                assert part.shape == whole.shape
+                diffs[(halo, w)] = max(_gather(
+                    float((part - whole).abs().max())))
+        out["chunked_generation"] = diffs
+    if "judged" in parts:
+        res = {}
+        for name in ("program", "bf16_gram"):
+            real = dpod.gram_fields
+            if name == "bf16_gram":
+                dpod.gram_fields = _bf16_gram(real)
+            try:
+                r = run_pipeline(judged_config(
+                    os.path.join(outdir, "judged_" + name), shard_time,
+                    shard_space), device="cpu")
+            finally:
+                dpod.gram_fields = real
+            k = r.pod.num_trunc
+            res[name] = dict(dir=os.path.join(outdir, "judged_" + name),
+                             ranks=_gather((
+                                 r.pod.energy.tobytes(), r.pod.num_valid, k,
+                                 r.pod.temporal_modes[:, :k].tobytes())))
+        out["judged"] = res
+    if "verbose" in parts:
+        c = cfg(os.path.join(outdir, "verbose"), nsteps=8, jma=10, kma=8,
+                modes=4, et=1.0, verbose=True, shard_time=shard_time,
+                shard_space=shard_space)
+        r = run_pipeline(c, device="cpu")
+        out["verbose"] = dict(num_valid=r.pod.num_valid,
+                              num_trunc=r.pod.num_trunc)
+    if "spans" in parts:
+        from torch.profiler import ProfilerActivity, profile
+
+        from pods_digital_filter_tpu_torch.utils import timing
+
+        c = cfg(os.path.join(outdir, "spans"), nsteps=8, jma=10, kma=8,
+                modes=4, et=1.0, shard_time=shard_time,
+                shard_space=shard_space)
+        timing.reset_counts()
+        with profile(activities=[ProfilerActivity.CPU]):
+            r = run_pipeline(c, device="cpu")
+        out["spans"] = dict(num_trunc=r.pod.num_trunc,
+                            ranks=_gather(timing.counts()))
+        timing.reset_counts()
     if "pipeline" in parts:
         c = cfg(os.path.join(outdir, "sharded"), nsteps=8, jma=10, kma=8,
                 modes=4, et=1.0, shard_time=shard_time,
