@@ -60,8 +60,10 @@ Phases, one result line each; any failed check raises (exit code != 0):
    4's in-memory result: the mean (1e-5 of max|mean|), ``energy[:20]``
    (1e-4 relative), the truncation, the count of eigenvalues above the f32
    noise floor n eps lambda_0 (within 1; both valid counts at least that),
-   the replay of its model, K1 launched once per block generation; then twice
-   with ``--checkpoint_dir`` (the second run loads every Gram row and takes
+   the replay of its model, K1 launched once per block generation, on the
+   dense f64 eigen route; (9a') the same run and checks with no room for
+   the dense solve, so the card's Lanczos fallback runs and its deferred
+   spectrum is joined; then twice with ``--checkpoint_dir`` (the second run loads every Gram row and takes
    the host eigen route, and writes the same model), and the checkpointed
    in-memory path against phase 4's ``A`` (1e-5);
 10. the flagship, ``-j 1024 -k 512 -n 10240 -l 4 -f 2 -m 20 -e 0.9
@@ -102,7 +104,8 @@ Phases, one result line each; any failed check raises (exit code != 0):
     the count above the f32 noise floor (within 1) and the written model's
     replay against phase 5's (1e-4 of the field's scale); (c) the same with
     ``--streaming_block 256 --gram_group 2 --eig_mode topk`` and its eigen
-    route; (d) ``--halo`` on 1 x 4: the target stresses and the v
+    route (dense f64), and (c') once more with no room for the dense
+    solve (rank 0's Lanczos fallback and its joined spectrum); (d) ``--halo`` on 1 x 4: the target stresses and the v
     correlation across the three tile seams against the filter's (0.05);
     (e) a 256 x 256 streaming run with ``--checkpoint_dir`` filled on 2 x 2
     and resumed on 1 x 4 (no generation but the projection's; the same
@@ -117,6 +120,7 @@ The last two lines are the kernel record (with each kernel's bound and
 library time) and the result as JSON.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -1038,7 +1042,7 @@ def phase_experiments():
     return launches
 
 #: phase 9: the streaming POD at the main size (block 256, group 2, the
-#: device Lanczos route on the Philox stream of phase 4)
+#: device f64 eigh route on the Philox stream of phase 4)
 STREAM_ARGS = ["--pallas", "--streaming_block", "256", "--gram_group", "2",
                "--eig_mode", "topk"]
 #: phase 10: the flagship of benchmarks/bench_flagship.py:58-65
@@ -1114,18 +1118,41 @@ def rel_err(a, b):
                         / np.abs(np.asarray(b))))
 
 
-def phase_streaming(mem, tmp):
-    """Phase 9: the streaming POD at the main size against phase 4's
-    in-memory result ``mem``, its checkpoint resume, and the checkpointed
-    in-memory path."""
+@contextlib.contextmanager
+def no_dense_eigh():
+    """Within it the streaming eigen half finds no room for the dense f64
+    solve, so a card takes its fallback: the f32 scalar Lanczos vectors
+    with the full spectrum deferred to a worker and joined."""
+    from pods_digital_filter_tpu_torch import streaming
+
+    fits = streaming.dense_eigh_fits
+    streaming.dense_eigh_fits = lambda dev, ns: False
+    try:
+        yield
+    finally:
+        streaming.dense_eigh_fits = fits
+
+
+def check_lanczos_fallback(res, what):
+    """The card's fallback route ran: Lanczos top-k vectors, and a deferred
+    spectrum that was joined (its stage timed, its route named)."""
+    print(f"    {what}: spectrum joined in "
+          f"{res.timer.times.get('streaming_eigh_spectrum')} s by "
+          f"{res.eig_route.get('spectrum')}")
+    check(res.eig_route["vectors"].startswith("Lanczos top-k on cuda"),
+          f"{what}: the device Lanczos route ran")
+    check("streaming_eigh_spectrum" in res.timer.times
+          and "spectrum" in res.eig_route,
+          f"{what}: the deferred spectrum resolved")
+
+
+def check_streaming(res, launches, mem, what):
+    """9a/9a': a main-size streaming run against phase 4's ``mem``."""
     import numpy as np
 
     ns = _opt(MAIN_ARGS, "-n")
     block = _opt(STREAM_ARGS, "--streaming_block")
     group = _opt(STREAM_ARGS, "--gram_group")
-    nb = -(-ns // block)
-    res, launches, _ = run_cli("9a streaming", MAIN_ARGS + STREAM_ARGS,
-                               os.path.join(tmp, "stream"))
     scale = float(np.abs(mem.mean_field).max())
     d_mean = float(np.abs(res.mean_field - mem.mean_field).max())
     d_e = rel_err(res.pod.energy[:20], mem.pod.energy[:20])
@@ -1140,18 +1167,40 @@ def phase_streaming(mem, tmp):
           f"{res.pod.energy[res.pod.num_valid - 1]:.3e} / "
           f"{mem.pod.energy[mem.pod.num_valid - 1]:.3e}; K1 launches "
           f"{launches} (expected {generations(ns, block, group)})")
-    check(d_mean <= 1e-5 * scale, "streaming mean vs in-memory")
-    check(d_e <= 1e-4, "streaming energy[:20] vs in-memory")
-    check(res.pod.num_trunc == 20, "streaming num_trunc 20")
+    check(d_mean <= 1e-5 * scale, f"{what}: streaming mean vs in-memory")
+    check(d_e <= 1e-4, f"{what}: streaming energy[:20] vs in-memory")
+    check(res.pod.num_trunc == 20, f"{what}: streaming num_trunc 20")
     check(abs(counts[0] - counts[1]) <= 1,
-          "the same count above the f32 noise floor")
+          f"{what}: the same count above the f32 noise floor")
     check(min(res.pod.num_valid, mem.pod.num_valid) >= min(counts) - 1,
-          "the valid counts differ only below the noise floor")
+          f"{what}: the valid counts differ only below the noise floor")
     check(launches == generations(ns, block, group),
-          "K1 launched once per block generation")
-    check(res.eig_route["vectors"].startswith("Lanczos top-k on cuda"),
-          "the device Lanczos route ran")
+          f"{what}: K1 launched once per block generation")
     check_replay(res)
+
+
+def phase_streaming(mem, tmp):
+    """Phase 9: the streaming POD at the main size against phase 4's
+    in-memory result ``mem`` (on the dense eigen route, then on the
+    card's Lanczos fallback), its checkpoint resume, and the checkpointed
+    in-memory path."""
+    import numpy as np
+
+    ns = _opt(MAIN_ARGS, "-n")
+    block = _opt(STREAM_ARGS, "--streaming_block")
+    group = _opt(STREAM_ARGS, "--gram_group")
+    nb = -(-ns // block)
+    res, launches, _ = run_cli("9a streaming", MAIN_ARGS + STREAM_ARGS,
+                               os.path.join(tmp, "stream"))
+    check_streaming(res, launches, mem, "9a")
+    check(res.eig_route["vectors"] == "device eigh on cuda (f64)",
+          "the device f64 eigh route ran")
+    with no_dense_eigh():
+        res, launches, _ = run_cli("9a' streaming, no room for the dense "
+                                   "solve", MAIN_ARGS + STREAM_ARGS,
+                                   os.path.join(tmp, "stream_lz"))
+    check_streaming(res, launches, mem, "9a'")
+    check_lanczos_fallback(res, "9a'")
 
     ck = os.path.join(tmp, "ck_stream")
     argv = MAIN_ARGS + STREAM_ARGS + ["--checkpoint_dir", ck]
@@ -1761,7 +1810,8 @@ def _sharded_rank(runs):
     """Phase 12 in one rank of a 4-rank job on the card: each ``(label,
     argv)`` of ``runs`` through the CLI parser and ``run_pipeline`` (the
     mesh shape from its flags, so 2 x 2 and 1 x 4 runs share the job).
-    Returns, from rank 0, each run's result (its mesh dropped) with every
+    A run ``(label, argv, False)`` finds no room for the dense eigen
+    solve.  Returns, from rank 0, each run's result (its mesh dropped) with every
     rank's peak device memory, wall, K1 launches and block generations."""
     import torch
     import torch.distributed as dist
@@ -1774,7 +1824,9 @@ def _sharded_rank(runs):
 
     real = sstream.make_sharded_generator
     out = []
-    for label, argv in runs:
+    for run in runs:
+        label, argv = run[:2]
+        dense = run[2] if len(run) > 2 else True
         args = cli.build_parser().parse_args(argv)
         cfg = cli.config_from_args(args)
         calls = []
@@ -1792,7 +1844,8 @@ def _sharded_rank(runs):
         fused_filter.LAUNCHES = 0
         t = time.perf_counter()
         try:
-            res = run_pipeline(cfg, device=args.device)
+            with contextlib.nullcontext() if dense else no_dense_eigh():
+                res = run_pipeline(cfg, device=args.device)
             torch.cuda.synchronize()
         finally:
             sstream.make_sharded_generator = real
@@ -1942,6 +1995,8 @@ def phase_sharded(oracle, tmp):
     runs = [("12b 2x2 in memory", MAIN_ARGS + MESH_2X2 + d("s12b")),
             ("12c 2x2 streaming", MAIN_ARGS + MESH_2X2 + SHARD_STREAM
              + d("s12c")),
+            ("12c' 2x2 streaming, no room for the dense solve",
+             MAIN_ARGS + MESH_2X2 + SHARD_STREAM + d("s12c_lz"), False),
             ("12d 1x4 --halo in memory", MAIN_ARGS + MESH_1X4 + ["--halo"]
              + d("s12d")),
             ("12e 2x2 streaming --checkpoint_dir (fills)",
@@ -1951,7 +2006,7 @@ def phase_sharded(oracle, tmp):
     t_spawn = time.perf_counter()
     out = mesh_lib.launch_local(_sharded_rank, 4, (runs,), deadline_s=900)
     spawn_s = time.perf_counter() - t_spawn
-    b, c, h, e1, e2 = out
+    b, c, c_lz, h, e1, e2 = out
     print(f"phase 12a: torch.cuda.device_count() = {count}; 4 ranks, "
           f"backend {b['backend']} (several ranks share a card: gloo, CUDA "
           f"tensors staged through the host); rank -> device "
@@ -1960,11 +2015,13 @@ def phase_sharded(oracle, tmp):
                            else "gloo"), "the backend follows the layout")
     for r, check_fn in ((b, lambda r: check_against(r, oracle, "12b")),
                         (c, lambda r: check_against(r, oracle, "12c")),
+                        (c_lz, lambda r: check_against(r, oracle, "12c'")),
                         (h, check_halo)):
         _print_run(r)
         check_fn(r)
-    check(c["res"].eig_route["vectors"].startswith("Lanczos top-k on cuda"),
-          "12c: rank 0's device Lanczos route ran")
+    check(c["res"].eig_route["vectors"] == "device eigh on cuda (f64)",
+          "12c: rank 0's device f64 eigh route ran")
+    check_lanczos_fallback(c_lz["res"], "12c' (rank 0)")
     for r in (e1, e2):
         _print_run(r)
     ns, block, group = (_opt(CKPT_ARGS, f) for f in

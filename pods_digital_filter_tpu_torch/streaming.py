@@ -377,6 +377,29 @@ def device_memory_budget(device) -> int | None:
         - DEVICE_RESERVE_BYTES
 
 
+def device_free_bytes(device) -> int | None:
+    """Bytes a new allocation can take on ``device`` now: the card's free
+    memory plus what the caching allocator holds reserved but unallocated
+    (it releases those segments before it gives up on an allocation);
+    None on the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(dev)
+    return free + torch.cuda.memory_reserved(dev) \
+        - torch.cuda.memory_allocated(dev)
+
+
+def dense_eigh_fits(dev, ns: int) -> bool:
+    """Whether the eigen half solves the whole ``(ns, ns)`` Gram with one
+    float64 device ``eigh``: on a card whose free memory
+    (:func:`device_free_bytes`) now holds the solve's bytes, about
+    ``5 * ns**2 * 8`` (the f64 copy, its symmetrised sum, the vectors and
+    cuSOLVER's workspace; 4.2 GB at ``ns`` = 10,240)."""
+    free = device_free_bytes(dev)
+    return free is not None and 5 * ns * ns * 8 <= free
+
+
 def cache_host_ram_estimate(np3: int, ns: int, itemsize: int) -> int:
     """Host bytes a ``--streaming_cache ram`` run will retain: every raw
     generated block, i.e. the full ``(3*Np, Ns)`` snapshot matrix."""
@@ -467,12 +490,13 @@ def streaming_pod(
     times (each pass ends in a device synchronize).
 
     Eigen routes: the full host eigh (``eig_mode`` full); or, for the top-k
-    modes with a complete device Gram, one float64 block-Lanczos band
-    reduction (spectrum and vectors at once), else the float32 scalar
-    Lanczos vectors with the full spectrum deferred to a worker thread
-    (``defer_spectrum=True`` returns before it is joined: call
-    ``result.resolve()`` before touching ``pod.energy``/``num_valid``); the
-    host solvers when the rows came from a store or a gate tripped.
+    modes with a complete device Gram, one float64 device ``eigh`` where it
+    fits the card's free memory (:func:`dense_eigh_fits`), else one float64
+    block-Lanczos band reduction (spectrum and vectors at once), else the
+    float32 scalar Lanczos vectors with the full spectrum deferred to a
+    worker thread (``defer_spectrum=True`` returns before it is joined:
+    call ``result.resolve()`` before touching ``pod.energy``/``num_valid``);
+    the host solvers when the rows came from a store or a gate tripped.
     ``result.route`` names the route taken."""
     dev = resolve_device(device)
     stage = (lambda name: nullcontext()) if timer is None else timer.stage
@@ -620,11 +644,13 @@ def eigen_half(gram: list, ns: int, nvec, num_modes_trunc: int,
     ``nvec`` is :func:`..ops.pod.resolve_num_vectors`'s answer.
 
     Routes: the full host eigh (``nvec`` None); or, for the top-k modes
-    with a device Gram, one float64 block-Lanczos band reduction (spectrum
-    and vectors at once), else the scalar Lanczos vectors with the full
-    spectrum deferred; the host solvers when the rows came from a store or
-    a gate tripped.  ``route`` names the route taken.  No collective runs
-    here or in the deferred call."""
+    with a device Gram, one float64 device ``eigh`` of the whole Gram
+    where :func:`dense_eigh_fits` (every count final, nothing deferred),
+    else one float64 block-Lanczos band reduction (spectrum and vectors at
+    once), else the scalar Lanczos vectors with the full spectrum
+    deferred; the host solvers when the rows came from a store or a gate
+    tripped.  ``route`` names the route taken.  No collective runs here or
+    in the deferred call."""
     stage = stage or (lambda name: nullcontext())
     C, C_dev = gram
     gram.clear()
@@ -648,6 +674,17 @@ def eigen_half(gram: list, ns: int, nvec, num_modes_trunc: int,
                 C_sym = symmetrize_gram_device(C_dev, ns)
                 C_dev = None     # free the raw accumulator
                 synchronize(dev)
+            if dense_eigh_fits(dev, ns):
+                # every eigenpair from one f64 solve: the counts are final
+                # before the projection
+                with timing.span("streaming.eigh_dense", device=dev):
+                    energy, temporal, num_valid, num_trunc = \
+                        pod_ops.temporal_from_gram_device(
+                            C_sym, ns, num_modes_trunc, tol_cn)
+                solver = f"device eigh on {dev.type} (f64)"
+                return EigenHalf(energy, temporal, num_valid, num_trunc,
+                                 num_trunc,
+                                 {"vectors": solver, "spectrum": solver})
             if C_sym.dtype == torch.float64:
                 # one complete block-Lanczos band reduction: the full
                 # spectrum and the top-k vectors together, synchronous

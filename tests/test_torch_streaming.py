@@ -529,3 +529,204 @@ def test_cli_streaming_and_checkpoint(tmp_path, monkeypatch):
         assert m.num_modes == mm.num_modes
         np.testing.assert_allclose(replay.Replayer(m).batch(ts),
                                    replay.Replayer(mm).batch(ts), atol=1e-4)
+
+
+# --- the dense route: one f64 device eigh where the card holds it -----------
+
+def _dense(monkeypatch, fits=True):
+    """Decide :func:`streaming.dense_eigh_fits` (on the CPU it is False:
+    no card, no budget), so LAPACK runs through the card's call."""
+    monkeypatch.setattr(streaming, "dense_eigh_fits", lambda dev, ns: fits)
+
+
+def _no_lanczos(monkeypatch):
+    fail = lambda *a, **k: pytest.fail("a Lanczos scan ran")
+    for name in ("spectrum_and_topk", "topk_or_none", "full_spectrum"):
+        monkeypatch.setattr(lanczos, name, fail)
+
+
+def _gram(A, block=4):
+    """``[C, C_dev]`` of the centred ``A`` as the Gram pass returns them,
+    and the symmetrised Gram in f64 that both routes solve."""
+    ns = A.shape[1]
+    Ac = A - A.mean(axis=1, keepdims=True, dtype=np.float64).astype(A.dtype)
+    gram = list(streaming.streamed_gram(
+        lambda t0: torch.as_tensor(Ac[:, t0:t0 + block]), ns, block,
+        return_device=True))
+    C = tpod.to_numpy(streaming.symmetrize_gram_device(gram[1], ns))
+    return gram, C.astype(np.float64)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_dense_route_equals_host_eigh(monkeypatch, dtype):
+    """The dense route's energy, valid count, truncation and scaled
+    temporal modes equal the host eigh's on the same Gram (rtol 1e-10;
+    modes to 1e-10 up to sign).  tol_cn 1e-6 keeps the Gram's null
+    eigenvalue (rounding noise of either sign) out of the valid count."""
+    _dense(monkeypatch)
+    _no_lanczos(monkeypatch)
+    A = _matrix(20, dtype)
+    gram, C = _gram(A)
+    sol = streaming.eigen_half(gram, 20, 5, 5, 1e-6, torch.device("cpu"))
+    energy, temporal, nv, nt = tpod.temporal_from_gram(C, 20, 5, 1e-6)
+    assert gram == []
+    assert sol.spectrum is None
+    assert (sol.num_valid, sol.num_trunc, sol.ncols) == (nv, nt, nt)
+    assert (nv, nt) == (18, 5)            # the reference caps it at ns - 2
+    np.testing.assert_allclose(sol.energy, energy, rtol=1e-10,
+                               atol=1e-10 * energy[0])
+    assert sol.temporal.shape == (20, nt)
+    np.testing.assert_allclose(align_signs(sol.temporal, temporal[:, :nt]),
+                               temporal[:, :nt], atol=1e-10)
+    assert sol.route == {"vectors": "device eigh on cpu (f64)",
+                         "spectrum": "device eigh on cpu (f64)"}
+
+
+def test_dense_route_defers_nothing(tmp_path, monkeypatch):
+    """streaming_pod(defer_spectrum=True) on the dense route returns with
+    nothing pending (no worker, resolve() a no-op) and the in-memory
+    run's POD (f64: spectrum to 1e-9, reconstruction to 1e-8)."""
+    _dense(monkeypatch)
+    _no_lanczos(monkeypatch)
+    cfg = _cfg(tmp_path, eig_mode="topk")
+    res = _run(cfg, write_outputs=False)
+    sp = _sp(cfg, 4, defer_spectrum=True)
+    assert not sp.spectrum_pending
+    assert sp.resolve() is False
+    assert sp.route["spectrum"] == "device eigh on cpu (f64)"
+    nv = res.pod.num_valid
+    assert sp.pod.num_valid == nv
+    assert sp.pod.num_trunc == res.pod.num_trunc
+    np.testing.assert_allclose(sp.pod.energy[:nv], res.pod.energy[:nv],
+                               rtol=1e-9, atol=1e-14)
+    k = sp.pod.num_trunc
+    rec = lambda p: p.spatial_modes[:, :k] @ p.temporal_modes[:, :k].T
+    np.testing.assert_allclose(rec(sp.pod), rec(res.pod), atol=1e-8)
+
+
+def test_run_pipeline_defer_finalize_dense(tmp_path, monkeypatch):
+    """run_pipeline(defer_finalize=True) on the dense streaming route
+    writes the whole model, the eigenvalue file included, before
+    finalize(), which changes nothing; replayed fields equal the full-eig
+    run's to 1e-8 (f64)."""
+    cfg_f = _cfg(tmp_path, nsteps=12, outdir=str(tmp_path / "full"),
+                 streaming_block=4, eig_mode="full")
+    rf = _run(cfg_f)
+    _dense(monkeypatch)
+    _no_lanczos(monkeypatch)
+    cfg_d = _cfg(tmp_path, nsteps=12, outdir=str(tmp_path / "dense"),
+                 streaming_block=4, eig_mode="topk")
+    rd = _run(cfg_d, defer_finalize=True)
+    assert not rd.finalize_pending
+    assert rd.eig_route["vectors"] == "device eigh on cpu (f64)"
+    listed = sorted(os.listdir(cfg_d.outdir))
+    assert "POD.eigenvalues.dat" in listed
+    energy, files = rd.pod.energy.copy(), list(rd.files)
+    assert rd.finalize() is rd
+    assert sorted(os.listdir(cfg_d.outdir)) == listed
+    assert rd.files == files
+    np.testing.assert_array_equal(rd.pod.energy, energy)
+    assert listed == sorted(os.listdir(cfg_f.outdir))
+    assert rd.pod.num_valid == rf.pod.num_valid
+    mf, md = replay.load_prf(cfg_f.outdir), replay.load_prf(cfg_d.outdir)
+    ts = np.linspace(0.0, mf.period, 5)
+    np.testing.assert_allclose(replay.Replayer(md).batch(ts),
+                               replay.Replayer(mf).batch(ts), atol=1e-8)
+
+
+def test_dense_route_counted_once_per_model(tmp_path, monkeypatch):
+    """Under a profiler each model counts one ``streaming.eigh_dense`` span
+    (with its seconds) and no Lanczos step; with no profiler nothing is
+    counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pods_digital_filter_tpu_torch.utils import timing
+
+    _dense(monkeypatch)
+    cfg = _cfg(tmp_path, nsteps=12, streaming_block=4, eig_mode="topk")
+    timing.reset_counts()
+    _run(cfg, write_outputs=False)
+    assert "streaming.eigh_dense" not in timing.counts()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(2):
+            _run(cfg, write_outputs=False)
+    c = timing.counts()
+    timing.reset_counts()
+    assert c["streaming.eigh_dense"] == 2
+    assert c["streaming.eigh_dense_s"] > 0.0
+    assert "lanczos.steps" not in c and "lanczos.scan" not in c
+
+
+def test_dense_eigh_fits_the_solve_bytes(monkeypatch):
+    """The dense route needs a card and 5 * ns^2 * 8 bytes of its free
+    memory (4.19 GB at the flagship's 10,240 steps): the card's free
+    bytes plus what the caching allocator holds reserved but
+    unallocated."""
+    assert streaming.device_free_bytes(torch.device("cpu")) is None
+    assert streaming.dense_eigh_fits(torch.device("cpu"), 16) is False
+    need = 5 * 10240 ** 2 * 8
+    gib = 2 ** 30
+    for free, reserved, allocated, fits in (
+            (need, 0, 0, True), (need - 1, 0, 0, False),
+            (40 * gib, 34 * gib, 34 * gib, True), (gib, 0, 0, False),
+            # the Gram pass's freed group buffers, still cached
+            (gib, 30 * gib, 5 * gib, True),
+            (need - 1, 2 * gib, 2 * gib, False),
+            (need - gib, 3 * gib, 2 * gib, True)):
+        monkeypatch.setattr(torch.cuda, "mem_get_info",
+                            lambda dev, free=free: (free, 80 * gib))
+        monkeypatch.setattr(torch.cuda, "memory_reserved",
+                            lambda dev, r=reserved: r)
+        monkeypatch.setattr(torch.cuda, "memory_allocated",
+                            lambda dev, a=allocated: a)
+        assert streaming.device_free_bytes("cuda") == \
+            free + reserved - allocated
+        assert streaming.dense_eigh_fits("cuda", 10240) is fits
+
+
+@pytest.mark.parametrize("dtype,route", [
+    (np.float64, {"vectors": "block Lanczos on cpu (f64)",
+                  "spectrum": "block Lanczos on cpu (f64)"}),
+    (np.float32, {"vectors": "Lanczos top-k on cpu (float32)",
+                  "spectrum": "Lanczos m = n on cpu (float32)"}),
+])
+def test_lanczos_routes_without_room(tmp_path, monkeypatch, dtype, route):
+    """A card with too little free memory for the dense solve: the
+    f64 block-Lanczos route and the f32 scalar route with its deferred
+    spectrum run as before, under their own route strings."""
+    monkeypatch.setattr(streaming, "device_free_bytes",
+                        lambda dev: 5 * 24 ** 2 * 8 - 1)
+    A = _matrix(24, dtype)
+    sj, st = _both(tmp_path, monkeypatch, A, dtype=np.dtype(dtype).name,
+                   eig_mode="topk")
+    assert st.route == route
+    assert not st.spectrum_pending
+    rtol = 1e-9 if dtype == np.float64 else 1e-5
+    np.testing.assert_allclose(st.pod.energy[:5], sj.pod.energy[:5],
+                               rtol=rtol)
+    assert st.pod.num_trunc == sj.pod.num_trunc == 5
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_dense_route_matches_jax(tmp_path, monkeypatch, dtype):
+    """The same matrix through both packages, the torch side on the dense
+    route and the JAX side on its Lanczos routes: mean, leading spectrum,
+    truncation and the rank-num_trunc reconstruction agree at the Lanczos
+    parity tests' tolerances (f64: spectrum rtol 1e-9, reconstruction
+    atol 1e-10, with the valid count; f32: rtol 1e-5, atol 1e-6)."""
+    _dense(monkeypatch)
+    _no_lanczos(monkeypatch)
+    A = _matrix(24, dtype)
+    sj, st = _both(tmp_path, monkeypatch, A, dtype=np.dtype(dtype).name,
+                   eig_mode="topk")
+    assert st.route == {"vectors": "device eigh on cpu (f64)",
+                        "spectrum": "device eigh on cpu (f64)"}
+    if dtype == np.float64:
+        _compare(sj, st, 1e-9, 1e-10)
+        return
+    np.testing.assert_allclose(st.mean_field, sj.mean_field, rtol=1e-6)
+    np.testing.assert_allclose(st.pod.energy[:5], sj.pod.energy[:5],
+                               rtol=1e-5)
+    assert st.pod.num_trunc == sj.pod.num_trunc == 5
+    rec = lambda p: p.spatial_modes @ p.temporal_modes[:, :5].T
+    np.testing.assert_allclose(rec(st.pod), rec(sj.pod), atol=1e-6)
