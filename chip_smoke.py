@@ -8,7 +8,7 @@ from the root of a checkout, on a host with a CUDA card, the CUDA toolkit
 Phases, one result line each; any failed check raises (exit code != 0):
 
 1. the card (``nvidia-smi`` name and power limit) and the software versions;
-2. build the kernels K1-K4 (csrc/*.cu, one nvcc per source, in parallel)
+2. build the kernels K1-K5 (csrc/*.cu, one nvcc per source, in parallel)
    from the checkout's sources, with each kernel's registers and spills
    (``-Xptxas -v``), the wgmma (HGMMA) count of K2's bf16-tap kernels, the
    static SASS counts of K1 and K4 (shared loads per FFMA, multiplies) and
@@ -17,7 +17,12 @@ Phases, one result line each; any failed check raises (exit code != 0):
 3. K1 against its plain PyTorch version on the card, at the shapes the main
    path gives it: the raw Philox stream bit for bit, the filtered slabs
    (atol 1e-5), the noise-in mode, window independence, stream statistics,
-   and both times at 512 x 512 x 1,040 slabs x 3 components;
+   and both times at 512 x 512 x 1,040 slabs x 3 components; (3f) K5, the
+   generation tail, against its plain chain (FIR, Lund, pack, rotation,
+   centre) within 1e-5 of the largest output, at the flagship's block
+   (1024 x 512, 512 steps) and the main window (512 x 512, 1,024 steps),
+   raw and centred, and on ragged shapes (nf 8 and 3), with both times,
+   K5's ms a launch and its share of the bound;
 4. the main path through the user's entry points, the CLI equivalent of
    ``-j 512 -k 512 -n 1024 -l 4 -f 2 -m 20 -e 0.9 --pallas --device cuda``:
    K1's launch count, the model files, the mean profile, a replay of the
@@ -192,7 +197,7 @@ def phase_build():
         stale.unlink()
     t = time.perf_counter()
     _, info = _build.load()
-    print(f"phase 2 build: K1-K4 built by nvcc (one process per source, in "
+    print(f"phase 2 build: K1-K5 built by nvcc (one process per source, in "
           f"parallel) in {info.seconds:.2f} s (load "
           f"{time.perf_counter() - t:.2f} s)")
     name = ""
@@ -332,6 +337,92 @@ def phase_kernel(dev):
     return worst, ms, plain_ms
 
 
+#: K5's shapes (label, jma, kma, steps, nf): the flagship's block, the main
+#: path's window, and two ragged against its 128-point blocks and 32-step
+#: tiles with an odd step count (its one-value stores), nf 8 and nf 3 (the
+#: taps' slabs read through the cache)
+TAIL_SHAPES = (("flagship block", 1024, 512, 512, 8), ("main", 512, 512, 1024, 8),
+               ("ragged", 37, 29, 45, 8), ("ragged nf 3", 37, 29, 45, 3))
+
+
+def _tail_case(dev, jma, kma, nsteps, nf):
+    """K1's slabs and the generator's Lund fields, taps and rotation for a
+    ``jma`` x ``kma`` x ``nsteps`` block (the CLI's default profile)."""
+    from pods_digital_filter_tpu_torch import cli, pipeline
+    from pods_digital_filter_tpu_torch.ops import fused_filter
+
+    args = cli.build_parser().parse_args(
+        ["-j", str(jma), "-k", str(kma), "-n", str(nsteps), "-l", str(nf / 2),
+         "-f", "2", "--pallas", "--device", "cuda"])
+    cfg = cli.config_from_args(args)
+    fields, _, filt, cfg, rotate = pipeline.resolve_profile(cfg)
+    check(filt.nfx == filt.nfy == filt.nfz == nf, f"nf = {nf}")
+    gen = pipeline.make_generator(cfg, fields, filt, rotate=rotate, device=dev)
+    z = fused_filter.fused_spatial(cfg.seed, 0, nsteps + 2 * nf, jma, kma,
+                                   gen.by, gen.bz, 3)
+    return z, gen
+
+
+def phase_tail(dev):
+    """Phase 3f: K5 against its plain chain at the flagship's block and the
+    main path's window, raw (the generator's own rotation, the identity for
+    the default normal) and centred (with a tilted rotation at the main
+    shape), and on ragged shapes; max |K5 - plain| within 1e-5 of
+    max |plain|.  Both times in turns at the two large shapes, beside the
+    bound (the slabs read once, the block written once, at 3.35 TB/s).
+    Returns ``(max abs error, ms, plain ms, bound)`` at the flagship block."""
+    import torch
+
+    from pods_digital_filter_tpu_torch.ops import fused_tail, rotation
+
+    sync = torch.cuda.synchronize
+    tilted = torch.as_tensor(rotation.profile_rotation_matrix(1.0, 0.3, 0.2),
+                             dtype=torch.float32, device=dev)
+    record = None
+    for label, jma, kma, nsteps, nf in TAIL_SHAPES:
+        z, gen = _tail_case(dev, jma, kma, nsteps, nf)
+        args = (z, gen.bx, gen.stresses, gen.means)
+        plain_raw = fused_tail.fused_tail_plain(*args, gen.rotation, None)
+        center = plain_raw.mean(dim=1)
+        rot = gen.rotation if label == "flagship block" else tilted
+        errs = {}
+        for case, r, c in (("raw", gen.rotation, None),
+                           ("centred", rot, center)):
+            want = plain_raw if case == "raw" else \
+                fused_tail.fused_tail_plain(*args, r, c)
+            got = fused_tail.fused_tail(*args, r, c)
+            sync()
+            scale = float(want.abs().max())
+            errs[case] = (float((got - want).abs().max()), scale)
+            del got, want
+        worst = max(e / s for e, s in errs.values())
+        print(f"phase 3f K5 {label} {jma}x{kma} x {nsteps} steps, nf {nf}: "
+              + "; ".join(f"{k} max |K5 - plain| {e:.3e} (max |plain| "
+                          f"{s:.4f})" for k, (e, s) in errs.items()))
+        check(worst <= 1e-5, f"K5 against the plain chain, {label}")
+        if label in ("flagship block", "main"):
+            kernel = lambda: fused_tail.fused_tail(*args, gen.rotation, None)
+            plain = lambda: fused_tail.fused_tail_plain(*args, gen.rotation,
+                                                         None)
+            times = {"plain": [], "kernel": []}
+            for name in ("plain", "kernel", "kernel", "plain"):
+                ms, _ = cuda_ms(kernel if name == "kernel" else plain, sync,
+                                reps=1 if name == "plain" else 5)
+                times[name].append(ms)
+            ms, plain_ms = (sum(times[k]) / 2 for k in ("kernel", "plain"))
+            nbytes = 4 * 3 * jma * kma * ((nsteps + 2 * nf) + nsteps)
+            bnd = bound(nbytes)
+            print(f"    K5 {times['kernel']} ms a launch, plain "
+                  f"{times['plain']} ms; bound {bnd[0]:.3f} ms "
+                  f"({nbytes / 1e9:.2f} GB at 3.35 TB/s): K5 at "
+                  f"{100 * bnd[0] / ms:.1f} % of it")
+            if record is None:
+                record = (errs["raw"][0], ms, plain_ms, bnd)
+        del z, gen, args, plain_raw, center
+        torch.cuda.empty_cache()
+    return record
+
+
 def _read_model(outdir):
     from pods_digital_filter_tpu_torch.io.prf import read_field_prf, read_podfs_dat
 
@@ -433,7 +524,7 @@ def phase_main(label, extra, outdir, extra_check=None):
     import torch
 
     from pods_digital_filter_tpu_torch import cli
-    from pods_digital_filter_tpu_torch.ops import fused_filter
+    from pods_digital_filter_tpu_torch.ops import fused_filter, fused_tail
     from pods_digital_filter_tpu_torch.pipeline import resolve_profile, run_pipeline
 
     args = cli.build_parser().parse_args(
@@ -442,7 +533,7 @@ def phase_main(label, extra, outdir, extra_check=None):
     check(cfg.filt.nfx == cfg.filt.nfy == cfg.filt.nfz == 8, "nf = 8")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_filter.LAUNCHES = 0
+    fused_filter.LAUNCHES = fused_tail.LAUNCHES = 0
     t = time.perf_counter()
     res = run_pipeline(cfg, device=args.device)
     wall = time.perf_counter() - t
@@ -450,8 +541,10 @@ def phase_main(label, extra, outdir, extra_check=None):
     peak = torch.cuda.max_memory_allocated()
     stages = {k: round(v, 4) for k, v in res.timer.times.items()}
     print(f"phase {label}: run_pipeline {wall:.3f} s, K1 launches {launches}, "
-          f"peak device memory "
+          f"K5 launches {fused_tail.LAUNCHES}, peak device memory "
           f"{peak / 2 ** 30:.3f} GiB, stages (s) " + json.dumps(stages))
+    check(fused_tail.LAUNCHES == (launches if cfg.dtype == "float32" else 0),
+          "K5 follows K1 on the float32 route only")
     files = ["PODFS.dat", "PODFS_mean.prf", "POD.eigenvalues.dat",
              "POD.spatial_mean_field_velocity.vtk"] + [
         "PODFS_mode_%04d.prf" % (i + 1) for i in range(20)]
@@ -479,6 +572,7 @@ SASS_KERNELS = {
     "K1 any nf": "walk_kernelILi0ELb0ELi0ELi0ELb0E",
     "K1 raw bf16": "raw_kernelI13__nv_bfloat16E",
     "K4 f32 taps, nf 8": "fused_temporal_kernelILi0ELb0ELi8ELi8ELi8E",
+    "K5 nf 8": "tail_kernelILi8EE",
 }
 EXP = dict(nf=8, jma=512, kma=512, slabs=80)       # the experiments' shape
 MAIN = dict(nf=8, jma=512, kma=512, slabs=1040)     # the main path's shape
@@ -1074,7 +1168,7 @@ def run_cli(label, argv, outdir):
     import torch
 
     from pods_digital_filter_tpu_torch import cli
-    from pods_digital_filter_tpu_torch.ops import fused_filter
+    from pods_digital_filter_tpu_torch.ops import fused_filter, fused_tail
     from pods_digital_filter_tpu_torch.pipeline import run_pipeline
 
     args = cli.build_parser().parse_args(
@@ -1082,7 +1176,7 @@ def run_cli(label, argv, outdir):
     cfg = cli.config_from_args(args)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_filter.LAUNCHES = 0
+    fused_filter.LAUNCHES = fused_tail.LAUNCHES = 0
     t = time.perf_counter()
     res = run_pipeline(cfg, device=args.device)
     wall = time.perf_counter() - t
@@ -1090,8 +1184,10 @@ def run_cli(label, argv, outdir):
     peak = torch.cuda.max_memory_allocated()
     stages = {k: round(v, 4) for k, v in res.timer.times.items()}
     print(f"phase {label}: run_pipeline {wall:.3f} s, K1 launches {launches}, "
-          f"peak device memory {peak / 2 ** 30:.3f} GiB, stages (s) "
-          + json.dumps(stages), flush=True)
+          f"K5 launches {fused_tail.LAUNCHES}, peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB, stages (s) " + json.dumps(stages),
+          flush=True)
+    check(fused_tail.LAUNCHES == launches, "K5 launched after every K1")
     if res.eig_route is not None:
         print(f"    eigen route: {json.dumps(res.eig_route)}")
         if "gate" in res.eig_route:
@@ -1263,8 +1359,9 @@ def phase_flagship(dev, outdir):
     res, launches, peak = run_cli("10 flagship", FLAGSHIP_ARGS, outdir)
     cfg = res.config
     np3 = 3 * cfg.plane.jma * cfg.plane.kma
-    est = streaming.gram_pass_hbm_estimate(np3, block, group, 4,
-                                           cfg.filt.nfx, ns)
+    est = streaming.gram_pass_hbm_estimate(
+        np3, block, group, 4, cfg.filt.nfx, ns,
+        fused_tail=cfg.use_pallas and cfg.dtype == "float32")
     print(f"    Gram-pass memory estimate {est / 2 ** 30:.3f} GiB, measured "
           f"peak {peak / 2 ** 30:.3f} GiB (peak / estimate "
           f"{peak / est:.3f}); budget "
@@ -2083,6 +2180,8 @@ REPLACES = {
            "benchmarks/exp_two_kernel_pipeline.py:341"),
     "K4": ("fused_temporal", "fused_temporal.cu",
            "benchmarks/exp_two_kernel_pipeline.py:570"),
+    "K5": ("fused_tail", "fused_tail.cu",
+           "none (the JAX package leaves the generation tail to XLA)"),
 }
 
 
@@ -2106,6 +2205,7 @@ def main():
     phase_build()
     geometry(dev)
     worst, ms, plain_ms = phase_kernel(dev)
+    tail = phase_tail(dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches, mem_res = phase_main("4 main path --pallas", ["--pallas"],
                                        os.path.join(tmp, "fused"))
@@ -2125,6 +2225,7 @@ def main():
         # K1 at the main path's shape (phase 3e): the f32 output write
         record["K1"] = (worst, ms, plain_ms, bound(
             3 * 1040 * 512 * 512 * 4, filter_work(1040, 512, 512, 8)), None)
+        record["K5"] = (*tail, None)
         torch.cuda.empty_cache()
         bf16_launches, _ = phase_main(
             "7 main path --pallas --dtype bfloat16",
@@ -2141,7 +2242,8 @@ def main():
         torch.cuda.empty_cache()
         phase_sharded(oracle, tmp)
         phase_flagship(dev, os.path.join(tmp, "flagship"))
-    counts = {"K1": launches, **{k: exp_launches[k] for k in ("K2", "K3", "K4")}}
+    counts = {"K1": launches, "K5": launches,
+              **{k: exp_launches[k] for k in ("K2", "K3", "K4")}}
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"kernels": [{
         "name": REPLACES[k][0],
@@ -2155,7 +2257,7 @@ def main():
         "bound_ms": record[k][3][0],
         "bound_by": record[k][3][1],
         "library_ms": record[k][4],
-    } for k in ("K1", "K2", "K3", "K4")]}))
+    } for k in ("K1", "K2", "K3", "K4", "K5")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

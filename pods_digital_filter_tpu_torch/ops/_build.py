@@ -158,6 +158,17 @@ def _bind(lib: ctypes.CDLL) -> None:
         c_float, c_void_p,                       # scale, stream
     ]
     lib.fused_temporal_launch.restype = c_int
+    lib.fused_tail_smem_bytes.argtypes = [c_int]
+    lib.fused_tail_smem_bytes.restype = c_int
+    lib.fused_tail_slots.argtypes = [c_int, c_int]
+    lib.fused_tail_slots.restype = c_int
+    lib.fused_tail_launch.argtypes = [
+        c_void_p, c_void_p, c_void_p, c_void_p,  # z, out, factors, means
+        c_void_p, c_void_p, c_void_p,            # center, bx, rotation
+        c_int, ctypes.c_longlong, c_int,         # nfx, points, nsteps
+        c_int, c_void_p,                         # chunk, stream
+    ]
+    lib.fused_tail_launch.restype = c_int
 
 
 def load():

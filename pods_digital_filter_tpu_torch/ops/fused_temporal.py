@@ -49,16 +49,18 @@ def temporal_tile(nfx: int, nfy: int, nfz: int, smem_bytes, limit: int):
 
 
 def _chunk(nsteps: int, nfx: int, blocks_per_chunk: int, slots: int,
-           max_chunks: int = 65535) -> int:
-    """Output steps per block.  With ``c`` chunks the ``blocks_per_chunk *
-    c`` blocks run in ``ceil(blocks_per_chunk * c / slots)`` waves over the
-    card's ``slots`` (SMs x blocks an SM holds, as the card reports), and
-    each walks ``ceil(nsteps / c) + 2 nfx`` slabs (its chunk and the ring's
-    warm-up): the chunk of the ``c <= max_chunks`` that minimises their
-    product, the fewest chunks on a tie."""
+           max_chunks: int = 65535, unit: int = 1) -> int:
+    """Output steps per block, a multiple of ``unit``.  With ``c`` chunks
+    the ``blocks_per_chunk * c`` blocks run in ``ceil(blocks_per_chunk * c /
+    slots)`` waves over the card's ``slots`` (SMs x blocks an SM holds, as
+    the card reports), and each walks ``ceil(nsteps / c) + 2 nfx`` slabs
+    (its chunk and the ring's warm-up): the chunk of the ``c <=
+    max_chunks`` that minimises their product, the fewest chunks on a
+    tie."""
     best = None
-    for c in range(1, min(nsteps, max_chunks) + 1):
-        chunk = -(-nsteps // c)
+    units = -(-nsteps // unit)
+    for c in range(1, min(units, max_chunks) + 1):
+        chunk = -(-units // c) * unit
         if -(-nsteps // chunk) != c:        # the same chunk as a smaller c
             continue
         cost = -(-blocks_per_chunk * c // slots) * (chunk + 2 * nfx)

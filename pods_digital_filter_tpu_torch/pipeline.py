@@ -10,7 +10,9 @@ out of core.
 (that module imports jax); the generator is an ``nn.Module`` whose buffers
 hold the filter taps, the stress and mean fields, the rotation and an
 optional centre.  With ``cfg.use_pallas`` the noise draw and spatial
-filter run in the fused CUDA kernel (:mod:`.ops.fused_filter`).
+filter run in the fused CUDA kernel (:mod:`.ops.fused_filter`), and in
+float32 the rest of the generation in the tail kernel
+(:mod:`.ops.fused_tail`).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from pods_digital_filter_tpu_torch.io import prf as prf_io
 from pods_digital_filter_tpu_torch.io import vtk as vtk_io
 from pods_digital_filter_tpu_torch.io.plane import PlaneGeometry, make_inflow_plane
 from pods_digital_filter_tpu_torch.ops import (filters, fourier, fused_filter,
-                                               lund, pod, rotation)
+                                               fused_tail, pod, rotation)
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16}
@@ -110,13 +112,6 @@ def resolve_profile(cfg: PipelineConfig):
     return fields, dt, filt, cfg, True
 
 
-def _pack_snapshots(colored: torch.Tensor) -> torch.Tensor:
-    """(3, Ns, jma, kma) -> (3*jma*kma, Ns) with the reference's row layout
-    ``row = comp*Np + j*kma + k`` (digitalfilters.py:1471-1473)."""
-    c, ns, jma, kma = colored.shape
-    return colored.permute(0, 2, 3, 1).reshape(c * jma * kma, ns)
-
-
 class InletGenerator(torch.nn.Module):
     """``forward(t0) -> (3*Np, nsteps)`` snapshots of the global time window
     ``[t0, t0 + nsteps)``: noise -> spatial filter -> temporal FIR -> Lund ->
@@ -124,9 +119,11 @@ class InletGenerator(torch.nn.Module):
 
     ``use_fused`` selects the fused CUDA kernel for noise + spatial filter
     (Philox stream; bfloat16 taps when ``dtype`` is bfloat16, else float32,
-    as the original's ``matmul_dtype``, ``pipeline.py:164-165``); otherwise
-    the stages are torch products in ``dtype`` on a ``torch.Generator``
-    stream."""
+    as the original's ``matmul_dtype``, ``pipeline.py:164-165``) and, in
+    float32, the tail kernel for FIR -> Lund -> pack -> rotate -> centre
+    (:func:`.ops.fused_tail.fused_tail`, its plain chain on the CPU);
+    otherwise the stages are torch products in ``dtype`` on a
+    ``torch.Generator`` stream."""
 
     def __init__(self, *, seed: int, nsteps: int, jma: int, kma: int,
                  nfx: int, nfy: int, nfz: int, lnx: float, lny: float,
@@ -186,6 +183,13 @@ class InletGenerator(torch.nn.Module):
             z = fused_filter.fused_spatial(self.seed, t0, num_slabs, self.jma,
                                            self.kma, self.by, self.bz, 3, noise,
                                            self.matmul_dtype)
+            noise = None
+            if self.dtype == torch.float32:
+                # the slabs and the block are the only block-sized tensors
+                # (streaming.gram_pass_hbm_estimate's fused_tail term)
+                return fused_tail.fused_tail(z, self.bx, self.stresses,
+                                             self.means, self.rotation,
+                                             self.center)
             y = filters.filter_temporal(z, self.bx, axis=-3).to(self.dtype)
         else:
             if noise is None:
@@ -195,17 +199,13 @@ class InletGenerator(torch.nn.Module):
             z = filters.filter_spatial(noise.to(self.dtype), self.by, self.bz,
                                        self.jma, self.kma)
             y = filters.filter_temporal(z, self.bx, axis=-3)
-        # drop each block-sized intermediate once consumed: at most three
-        # coexist (the slabs, the FIR's input copy and its output), the
-        # transient term of streaming.gram_pass_hbm_estimate
+        # drop the slabs once the FIR has consumed them: at most three
+        # block-sized tensors coexist (the slabs, the FIR's input copy and
+        # its output; later y, its colouring and the pack), the transient
+        # term of streaming.gram_pass_hbm_estimate
         del z, noise
-        A = _pack_snapshots(lund.apply_lund_stacked(y, self.stresses, self.means))
-        del y
-        if self.rotation is not None:
-            A = rotation.apply_rotation_packed(A, self.rotation)
-        if self.center is not None:
-            A = A - self.center[:, None]
-        return A
+        return fused_tail.colour_pack(y, self.stresses, self.means,
+                                      self.rotation, self.center)
 
 
 def make_generator(cfg: PipelineConfig, fields: prof.PlaneStressFields, filt,

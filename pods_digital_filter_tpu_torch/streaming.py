@@ -306,7 +306,8 @@ def make_centered_generator(cfg, fields, filt, block, ns, rotate, m,
 
 
 def gram_pass_hbm_estimate(np3: int, block: int, group: int, itemsize: int,
-                           nfx: int, ns: int = 0) -> int:
+                           nfx: int, ns: int = 0,
+                           fused_tail: bool = False) -> int:
     """Analytic peak device bytes of the Gram-pass column sweep — the
     coexisting tensors (the original's formula):
 
@@ -314,12 +315,14 @@ def gram_pass_hbm_estimate(np3: int, block: int, group: int, itemsize: int,
     * the regenerated column block (one more);
     * the generation transients of the column block: the filtered-slab
       tensor (``block + 2*nfx`` time slabs, the temporal-FIR input) and the
-      FIR output block;
+      FIR output block; with ``fused_tail`` (the generator's float32
+      ``--pallas`` route, :func:`.ops.fused_tail.fused_tail`) the slabs
+      only, since the tail kernel writes the column block itself;
     * when ``ns`` is given, the ``(ns, ns)`` Gram accumulator plus two
       strip-sized buffers of ``group * block * ns`` elements."""
     blk = np3 * block * itemsize
     slab = np3 * (block + 2 * nfx) * itemsize     # temporal-FIR input
-    transients = slab + blk                       # + FIR output block
+    transients = slab + (0 if fused_tail else blk)   # + FIR output block
     gram_acc = ns * ns * itemsize + 2 * group * block * ns * itemsize
     return int((group + 1) * blk + transients + gram_acc)
 
@@ -390,13 +393,15 @@ def _warn_cache_host_ram(np3, ns, itemsize, phys_bytes=None):
             stacklevel=3)
 
 
-def _warn_gram_hbm(np3, block, group, itemsize, nfx, ns=0, budget=None):
+def _warn_gram_hbm(np3, block, group, itemsize, nfx, ns=0, budget=None,
+                   fused_tail=False):
     """Warn before a Gram pass whose estimated peak exceeds ``budget``
     device bytes (None: no budget, no warning) — at every group, the
     default 1 included."""
     if budget is None:
         return
-    est = gram_pass_hbm_estimate(np3, block, group, itemsize, nfx, ns)
+    est = gram_pass_hbm_estimate(np3, block, group, itemsize, nfx, ns,
+                                 fused_tail)
     if est > budget:
         warnings.warn(
             f"--gram_group {group} with --streaming_block {block} puts the "
@@ -470,7 +475,8 @@ def streaming_pod(
         store = make_gram_store(cfg, filt, fields, rotate, block, dev)
 
     _warn_gram_hbm(np3, block, getattr(cfg, "gram_group", 1), itemsize,
-                   filt.nfx, ns, budget=device_memory_budget(dev))
+                   filt.nfx, ns, budget=device_memory_budget(dev),
+                   fused_tail=cfg.use_pallas and cfg.dtype == "float32")
 
     # the ragged final block generates a full window and keeps the first
     # ns-t0 columns (the same values: the stream is counter-indexed)

@@ -206,15 +206,19 @@ def test_cache_rejected_with_sharding(tmp_path):
 
 def test_gram_hbm_estimate_and_warning():
     """The estimate is the JAX package's formula (equal at every size), and
-    the warning fires against the budget it is given: at the flagship
-    (1024x512, block 512, f32, nfx 8, Ns 10,240) group 8 fits a 40 GiB
-    budget and group 16 does not; an oversized block warns at group 1; no
-    budget (the CPU), no warning."""
+    one column block less on the tail kernel's route (``fused_tail``: the
+    kernel writes the block that the FIR's output was); the warning fires
+    against the budget it is given: at the flagship (1024x512, block 512,
+    f32, nfx 8, Ns 10,240) group 8 fits a 40 GiB budget and group 16 does
+    not; an oversized block warns at group 1; no budget (the CPU), no
+    warning."""
     np3 = 3 * 1024 * 512
     for args in ((512, 1, 4, 8, 10240), (512, 8, 4, 8, 10240),
                  (128, 12, 4, 8, 10240), (4, 2, 8, 2, 14)):
-        assert streaming.gram_pass_hbm_estimate(np3, *args) == \
-            jstreaming.gram_pass_hbm_estimate(np3, *args)
+        est = streaming.gram_pass_hbm_estimate(np3, *args)
+        assert est == jstreaming.gram_pass_hbm_estimate(np3, *args)
+        assert est - streaming.gram_pass_hbm_estimate(
+            np3, *args, fused_tail=True) == np3 * args[0] * args[2]
     budget = 40 * 2 ** 30
     with warnings.catch_warnings():
         warnings.simplefilter("error")
