@@ -22,7 +22,13 @@ Phases, one result line each; any failed check raises (exit code != 0):
    centre) within 1e-5 of the largest output, at the flagship's block
    (1024 x 512, 512 steps) and the main window (512 x 512, 1,024 steps),
    raw and centred, and on ragged shapes (nf 8 and 3), with both times,
-   K5's ms a launch and its share of the bound;
+   K5's ms a launch and its share of the bound; then K5's bfloat16 mode
+   against the plain bf16 chain at every shape (the ragged ones take the
+   one-value stores and, at nf 3, the runtime-tap kernel), raw and centred
+   with a tilted rotation: at most 1e-3 of the elements differ, none by
+   more than 2 bf16 ulps of the element before centring, with both times
+   and the share of its bound (the f32 slabs read, the bf16 block written)
+   at the two large shapes;
 4. the main path through the user's entry points, the CLI equivalent of
    ``-j 512 -k 512 -n 1024 -l 4 -f 2 -m 20 -e 0.9 --pallas --device cuda``:
    K1's launch count, the model files, the mean profile, a replay of the
@@ -55,7 +61,10 @@ Phases, one result line each; any failed check raises (exit code != 0):
 7. the main path of phase 4 with ``--dtype bfloat16``: K1 launched, its
    output made with bf16 taps (snapshots regenerated on the host by the
    port's generator with bf16 taps agree with the run's in all but 1 % of
-   elements, with f32 taps they do not), replay and stresses as in phase 4;
+   elements, with f32 taps they do not), one bf16 K5 launch a model, a
+   peak below phase 4's, replay and stresses as in phase 4; (7b) phase 9's
+   streaming run in bf16, K5 centring every block: K5 after every K1, the
+   mean and ``energy[:20]`` against phase 7's within bf16's rounding;
 8. the decomposition path: both experiment entry points
    (``experiments.two_kernel_pipeline`` with every variant, then with
    ``EXP_TEMPORAL=1``; ``experiments.pipelined_kernel``) at their own
@@ -363,13 +372,82 @@ def _tail_case(dev, jma, kma, nsteps, nf):
     return z, gen
 
 
+#: K5's bf16 mode against the plain bf16 chain: the share of the elements
+#: that may differ, and the most one may differ by, in bf16 ulps of the
+#: element before centring (the centring subtracts two close bf16 values
+#: exactly, so a rounding moved before it keeps its absolute size)
+BF16_SHARE, BF16_ULPS = 1e-3, 2
+
+
+def bf16_ulp(x):
+    """The spacing of bfloat16 values at ``|x|``, as float32."""
+    import torch
+
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def tail_bf16(z, gen, tilted, jma, kma, nsteps, nf, timed):
+    """K5's bf16 mode against the plain bf16 chain (the FIR in f32, then
+    Lund, pack, rotation and centre in bf16) on one shape, raw and centred
+    with ``tilted``; with ``timed``, both times in turns, beside its
+    bound."""
+    import torch
+
+    from pods_digital_filter_tpu_torch.ops import fused_tail
+
+    bf = torch.bfloat16
+    args = (z, gen.bx, gen.stresses.to(bf), gen.means.to(bf))
+    rot, tilt = gen.rotation.to(bf), tilted.to(bf)
+    plain_raw = fused_tail.fused_tail_plain(*args, rot, None)
+    center = plain_raw.float().mean(dim=1).to(bf)
+    out = {}
+    for case, r, c in (("raw", rot, None), ("centred", tilt, center)):
+        base = plain_raw if case == "raw" else \
+            fused_tail.fused_tail_plain(*args, r, None)
+        want = base if c is None else fused_tail.fused_tail_plain(*args, r, c)
+        got = fused_tail.fused_tail(*args, r, c)
+        torch.cuda.synchronize()
+        check(got.dtype == bf and got.shape == want.shape, "K5 writes bf16")
+        diff = (got.float() - want.float()).abs()
+        share = float((diff > 0).float().mean())
+        ulps = float((diff / bf16_ulp(base)).max())
+        out[case] = (share, ulps, float(diff.max()))
+        del got, want, base, diff
+    print(f"phase 3f K5 bf16 {jma}x{kma} x {nsteps} steps, nf {nf}: "
+          + "; ".join(f"{k} {s:.3e} of the elements differ, at most {u:g} "
+                      f"bf16 ulps ({d:.3e})" for k, (s, u, d) in out.items()))
+    check(max(s for s, _, _ in out.values()) <= BF16_SHARE,
+          f"K5 bf16: at most {BF16_SHARE} of the elements differ")
+    check(max(u for _, u, _ in out.values()) <= BF16_ULPS,
+          f"K5 bf16: none by more than {BF16_ULPS} ulps")
+    if not timed:
+        return
+    kernel = lambda: fused_tail.fused_tail(*args, rot, None)
+    plain = lambda: fused_tail.fused_tail_plain(*args, rot, None)
+    times = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        ms, _ = cuda_ms(kernel if name == "kernel" else plain,
+                        torch.cuda.synchronize,
+                        reps=1 if name == "plain" else 5)
+        times[name].append(ms)
+    ms = sum(times["kernel"]) / 2
+    nbytes = 3 * jma * kma * (4 * (nsteps + 2 * nf) + 2 * nsteps)
+    bnd = bound(nbytes)
+    print(f"    K5 bf16 {times['kernel']} ms a launch, plain bf16 chain "
+          f"{times['plain']} ms; bound {bnd[0]:.3f} ms ({nbytes / 1e9:.2f} GB "
+          f"at 3.35 TB/s): K5 at {100 * bnd[0] / ms:.1f} % of it")
+
+
 def phase_tail(dev):
     """Phase 3f: K5 against its plain chain at the flagship's block and the
     main path's window, raw (the generator's own rotation, the identity for
     the default normal) and centred (with a tilted rotation at the main
     shape), and on ragged shapes; max |K5 - plain| within 1e-5 of
     max |plain|.  Both times in turns at the two large shapes, beside the
-    bound (the slabs read once, the block written once, at 3.35 TB/s).
+    bound (the slabs read once, the block written once, at 3.35 TB/s); then
+    the bf16 mode at every shape (:func:`tail_bf16`), timed at the two
+    large ones.
     Returns ``(max abs error, ms, plain ms, bound)`` at the flagship block."""
     import torch
 
@@ -418,6 +496,9 @@ def phase_tail(dev):
                   f"{100 * bnd[0] / ms:.1f} % of it")
             if record is None:
                 record = (errs["raw"][0], ms, plain_ms, bnd)
+        torch.cuda.empty_cache()
+        tail_bf16(z, gen, tilted, jma, kma, nsteps, nf,
+                  timed=label in ("flagship block", "main"))
         del z, gen, args, plain_raw, center
         torch.cuda.empty_cache()
     return record
@@ -520,7 +601,8 @@ def check_bf16_taps(res, t0=500, nsteps=2):
 
 
 def phase_main(label, extra, outdir, extra_check=None):
-    """One main-path run; returns ``(K1 launches, result)``."""
+    """One main-path run; returns ``(K1 launches, result)``; the run's peak
+    device memory is ``torch.cuda.max_memory_allocated()`` after it."""
     import torch
 
     from pods_digital_filter_tpu_torch import cli
@@ -543,8 +625,9 @@ def phase_main(label, extra, outdir, extra_check=None):
     print(f"phase {label}: run_pipeline {wall:.3f} s, K1 launches {launches}, "
           f"K5 launches {fused_tail.LAUNCHES}, peak device memory "
           f"{peak / 2 ** 30:.3f} GiB, stages (s) " + json.dumps(stages))
-    check(fused_tail.LAUNCHES == (launches if cfg.dtype == "float32" else 0),
-          "K5 follows K1 on the float32 route only")
+    takes = cfg.use_pallas and cfg.dtype in ("float32", "bfloat16")
+    check(fused_tail.LAUNCHES == (launches if takes else 0),
+          "K5 follows K1 on the float32 and bfloat16 --pallas routes only")
     files = ["PODFS.dat", "PODFS_mean.prf", "POD.eigenvalues.dat",
              "POD.spatial_mean_field_velocity.vtk"] + [
         "PODFS_mode_%04d.prf" % (i + 1) for i in range(20)]
@@ -572,7 +655,8 @@ SASS_KERNELS = {
     "K1 any nf": "walk_kernelILi0ELb0ELi0ELi0ELb0E",
     "K1 raw bf16": "raw_kernelI13__nv_bfloat16E",
     "K4 f32 taps, nf 8": "fused_temporal_kernelILi0ELb0ELi8ELi8ELi8E",
-    "K5 nf 8": "tail_kernelILi8EE",
+    "K5 f32, nf 8": "tail_kernelILi8EfE",
+    "K5 bf16, nf 8": "tail_kernelILi8E13__nv_bfloat16E",
 }
 EXP = dict(nf=8, jma=512, kma=512, slabs=80)       # the experiments' shape
 MAIN = dict(nf=8, jma=512, kma=512, slabs=1040)     # the main path's shape
@@ -1278,6 +1362,36 @@ def check_streaming(res, launches, mem, what):
     check(launches == generations(ns, block, group),
           f"{what}: K1 launched once per block generation")
     check_replay(res)
+
+
+def phase_streaming_bf16(mem, tmp):
+    """Phase 7b: phase 9's streaming run in bf16, where K5 writes each
+    block centred in bf16, against phase 7's in-memory bf16 result
+    ``mem``: K5 after every K1 (``run_cli``), the mean within 4 bf16 ulps
+    of its largest value, ``energy[:20]`` within 1e-2 of ``energy[0]`` (the
+    two routes round the block and the Gram at different points)."""
+    import numpy as np
+
+    res, launches, _ = run_cli("7b streaming --dtype bfloat16",
+                               MAIN_ARGS + STREAM_ARGS + ["--dtype",
+                                                          "bfloat16"],
+                               os.path.join(tmp, "stream_bf16"))
+    ns = _opt(MAIN_ARGS, "-n")
+    block = _opt(STREAM_ARGS, "--streaming_block")
+    group = _opt(STREAM_ARGS, "--gram_group")
+    scale = float(np.abs(mem.mean_field).max())
+    d_mean = float(np.abs(res.mean_field - mem.mean_field).max())
+    d_e = float(np.abs(res.pod.energy[:20] - mem.pod.energy[:20]).max()
+                / mem.pod.energy[0])
+    print(f"    vs phase 7: max |mean - mean_7| = {d_mean:.3e} (limit "
+          f"{2 ** -5 * scale:.3e}); energy[:20] max diff over energy[0] "
+          f"{d_e:.3e} (limit 1e-2); num_trunc {res.pod.num_trunc}; K1 "
+          f"launches {launches} (expected {generations(ns, block, group)})")
+    check(d_mean <= 2 ** -5 * scale, "7b: streaming bf16 mean vs in-memory")
+    check(d_e <= 1e-2, "7b: streaming bf16 energy[:20] vs in-memory")
+    check(res.pod.num_trunc == 20, "7b: streaming num_trunc 20")
+    check(launches == generations(ns, block, group),
+          "7b: K1 launched once per block generation")
 
 
 def phase_streaming(mem, tmp):
@@ -2209,6 +2323,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         launches, mem_res = phase_main("4 main path --pallas", ["--pallas"],
                                        os.path.join(tmp, "fused"))
+        f32_peak = torch.cuda.max_memory_allocated()
         check(launches > 0, "the main path launched K1")
         torch.cuda.empty_cache()
         plain_launches, plain = phase_main("5 main path, torch-ops generator",
@@ -2227,11 +2342,17 @@ def main():
             3 * 1040 * 512 * 512 * 4, filter_work(1040, 512, 512, 8)), None)
         record["K5"] = (*tail, None)
         torch.cuda.empty_cache()
-        bf16_launches, _ = phase_main(
+        bf16_launches, bf16_res = phase_main(
             "7 main path --pallas --dtype bfloat16",
             ["--pallas", "--dtype", "bfloat16"], os.path.join(tmp, "bf16"),
             check_bf16_taps)
-        check(bf16_launches > 0, "the bf16 main path launched K1")
+        check(bf16_launches == 1, "the bf16 main path launched K1 once")
+        bf16_peak = torch.cuda.max_memory_allocated()
+        print(f"    peak {bf16_peak / 2 ** 30:.3f} GiB against phase 4's "
+              f"{f32_peak / 2 ** 30:.3f} GiB")
+        check(bf16_peak < f32_peak, "the bf16 route peaks below float32")
+        phase_streaming_bf16(bf16_res, tmp)
+        del bf16_res
         torch.cuda.empty_cache()
         exp_launches = phase_experiments()
         torch.cuda.empty_cache()

@@ -21,9 +21,18 @@
 // It equals the plain chain (ops/fused_tail.py) up to the summation order
 // of the FIR and of the rotation, which the plain chain leaves to cuBLAS.
 //
+// bfloat16 output (the generator's bf16 route): the same work, rounded
+// to bf16 (to nearest even) wherever the plain bf16 chain rounds, and at
+// no other point: the FIR's f32 sum once; each of Lund's products and sums
+// on its own (the factors, means, rotation and centre arrive as f32 that
+// hold bf16 values, so every product is exact in f32 before it is
+// rounded); the rotation's 3-term f32 sum once; the centring.  The tile
+// stays f32 in shared memory and leaves it as 16-byte runs of 8 bf16.
+//
 // What bounds it: bytes.  It must read the slabs once and write the block
 // once, 4 * 3 np (S + nsteps) bytes (6.54 GB at 1024 x 512, 512 steps, nf 8:
-// 1.95 ms at 3.35 TB/s), against 3 (2nfx + 1) FMAs and about 20 other
+// 1.95 ms at 3.35 TB/s; in bf16 3 np (4 S + 2 nsteps), 4.88 GB at 512 x 512,
+// 1,024 steps: 1.46 ms), against 3 (2nfx + 1) FMAs and about 20 other
 // operations a point and step (0.6 ms of the f32 issue rate at that shape).
 // What the design does about it:
 //  * a block owns 128 consecutive points, one a thread, and a chunk of
@@ -44,7 +53,10 @@
 //    window), with the same arithmetic in the same order.
 // Nothing block-sized but z and out touches device memory.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -56,7 +68,7 @@ constexpr int kMaxGridY = 65535;
 
 struct Params {
   const float* z;        // (3, num_slabs, np) K1's slabs
-  float* out;            // (3 np, nsteps)
+  void* out;             // (3 np, nsteps) of the kernel's output type
   const float* factors;  // (6, np): a00, a10, a11, a20, a21, a22
   const float* means;    // (3, np)
   const float* center;   // (3 np,) or nullptr
@@ -83,60 +95,108 @@ struct Point {
   float cu, cv, cw;
 };
 
+// x as the block's type rounds it (to the nearest bf16, ties to even), as
+// an f32; for a float block x itself, so the float32 mode's code is as if
+// there were no rounding at all
+template <typename OutT>
+__device__ __forceinline__ float rnd(float x) {
+  if constexpr (std::is_same<OutT, __nv_bfloat16>::value)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
+}
+
+// Lund, the rotation and the centring of one point and step, rounded to
+// OutT as the plain chain in that type rounds: every elementwise result on
+// its own, the rotation's 3-term sum once
+template <typename OutT>
 __device__ __forceinline__ void finish(const Point& q, const float* rot,
                                        bool centre, float x0, float x1,
                                        float x2, float (&o)[3]) {
-  const float u = __fadd_rn(__fmul_rn(q.a00, x0), q.mu);
-  const float v = __fadd_rn(__fadd_rn(__fmul_rn(q.a10, x0), __fmul_rn(q.a11, x1)), q.mv);
-  const float w = __fadd_rn(
-      __fadd_rn(__fadd_rn(__fmul_rn(q.a20, x0), __fmul_rn(q.a21, x1)), __fmul_rn(q.a22, x2)),
-      q.mw);
+  const auto r = [](float x) { return rnd<OutT>(x); };
+  x0 = r(x0);
+  x1 = r(x1);
+  x2 = r(x2);
+  const float u = r(__fadd_rn(r(__fmul_rn(q.a00, x0)), q.mu));
+  const float v = r(__fadd_rn(
+      r(__fadd_rn(r(__fmul_rn(q.a10, x0)), r(__fmul_rn(q.a11, x1)))), q.mv));
+  const float w = r(__fadd_rn(
+      r(__fadd_rn(r(__fadd_rn(r(__fmul_rn(q.a20, x0)), r(__fmul_rn(q.a21, x1)))),
+                  r(__fmul_rn(q.a22, x2)))),
+      q.mw));
   if (rot != nullptr) {
 #pragma unroll
     for (int c = 0; c < 3; ++c)
-      o[c] = fmaf(rot[3 * c + 2], w, fmaf(rot[3 * c + 1], v, __fmul_rn(rot[3 * c], u)));
+      o[c] = r(fmaf(rot[3 * c + 2], w, fmaf(rot[3 * c + 1], v, __fmul_rn(rot[3 * c], u))));
   } else {
     o[0] = u;
     o[1] = v;
     o[2] = w;
   }
   if (centre) {
-    o[0] = __fsub_rn(o[0], q.cu);
-    o[1] = __fsub_rn(o[1], q.cv);
-    o[2] = __fsub_rn(o[2], q.cw);
+    o[0] = r(__fsub_rn(o[0], q.cu));
+    o[1] = r(__fsub_rn(o[1], q.cv));
+    o[2] = r(__fsub_rn(o[2], q.cw));
   }
 }
 
-// the tile's steps [n, n1) of the block's points to out, as float4 runs
-// where every row starts 16-byte aligned (nsteps % 4 == 0), else one value
-// at a time
+// two steps as bf16, the first in the low half (the lower address)
+__device__ __forceinline__ unsigned int pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  unsigned int u;
+  memcpy(&u, &v, sizeof(u));
+  return u;
+}
+
+// the tile's steps [n, n1) of the block's points to out, as 16-byte runs
+// (4 f32 or 8 bf16) where every row starts 16-byte aligned (nsteps a
+// multiple of the run), else one value at a time
+template <typename OutT>
 __device__ __forceinline__ void store_tile(const Params& p, const float* tile,
                                            long long pt0, int n, int n1) {
+  constexpr bool kBf16 = std::is_same<OutT, __nv_bfloat16>::value;
+  constexpr int kRun = 16 / static_cast<int>(sizeof(OutT));  // values a run
+  OutT* out = static_cast<OutT*>(p.out);
   const int cols = min(kTailSteps, n1 - n);
   const int pts = static_cast<int>(min(static_cast<long long>(kTailThreads), p.np - pt0));
   const size_t T = static_cast<size_t>(p.nsteps);
-  if ((p.nsteps & 3) == 0) {
-    constexpr int kVec = kTailSteps / 4;
+  if ((p.nsteps & (kRun - 1)) == 0) {
+    constexpr int kVec = kTailSteps / kRun;
     for (int f = threadIdx.x; f < 3 * kTailThreads * kVec; f += kTailThreads) {
       const int row = f / kVec, v = f % kVec;
       const int c = row / kTailThreads, q = row % kTailThreads;
-      if (q >= pts || 4 * v >= cols) continue;
-      const float4 val = *reinterpret_cast<const float4*>(tile + row * kRow + 4 * v);
-      float* dst = p.out + (static_cast<size_t>(c) * p.np + pt0 + q) * T + n + 4 * v;
-      *reinterpret_cast<float4*>(dst) = val;
+      if (q >= pts || kRun * v >= cols) continue;
+      const float* src = tile + row * kRow + kRun * v;
+      OutT* dst = out + (static_cast<size_t>(c) * p.np + pt0 + q) * T + n + kRun * v;
+      if constexpr (kBf16) {
+        // the values are bf16 already: the conversion is exact
+        const float4 a = *reinterpret_cast<const float4*>(src);
+        const float4 b = *reinterpret_cast<const float4*>(src + 4);
+        *reinterpret_cast<uint4*>(dst) = make_uint4(pack2(a.x, a.y), pack2(a.z, a.w),
+                                                    pack2(b.x, b.y), pack2(b.z, b.w));
+      } else {
+        *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+      }
     }
   } else {
     for (int f = threadIdx.x; f < 3 * kTailThreads * kTailSteps; f += kTailThreads) {
       const int row = f / kTailSteps, t = f % kTailSteps;
       const int c = row / kTailThreads, q = row % kTailThreads;
       if (q >= pts || t >= cols) continue;
-      p.out[(static_cast<size_t>(c) * p.np + pt0 + q) * T + n + t] = tile[row * kRow + t];
+      const float val = tile[row * kRow + t];
+      OutT* dst = out + (static_cast<size_t>(c) * p.np + pt0 + q) * T + n + t;
+      if constexpr (kBf16) {
+        *dst = __float2bfloat16_rn(val);
+      } else {
+        *dst = val;
+      }
     }
   }
 }
 
-// NX = nfx known at compile time (register window), or 0 (any nfx)
-template <int NX>
+// NX = nfx known at compile time (register window), or 0 (any nfx); OutT
+// float or __nv_bfloat16, the block's type
+template <int NX, typename OutT>
 __global__ void __launch_bounds__(kTailThreads) tail_kernel(const __grid_constant__ Params p) {
   extern __shared__ float4 smem4[];
   float* tile = reinterpret_cast<float*>(smem4);  // (3, kTailThreads, kRow)
@@ -225,7 +285,7 @@ __global__ void __launch_bounds__(kTailThreads) tail_kernel(const __grid_constan
         float o[4][3];
 #pragma unroll
         for (int k = 0; k < 4; ++k)
-          finish(q, rot, centre, acc[0][e + k], acc[1][e + k], acc[2][e + k], o[k]);
+          finish<OutT>(q, rot, centre, acc[0][e + k], acc[1][e + k], acc[2][e + k], o[k]);
 #pragma unroll
         for (int c = 0; c < 3; ++c)
           *reinterpret_cast<float4*>(tile + (c * kTailThreads + threadIdx.x) * kRow + g + e) =
@@ -233,14 +293,17 @@ __global__ void __launch_bounds__(kTailThreads) tail_kernel(const __grid_constan
       }
     }
     __syncthreads();  // the tile is whole
-    store_tile(p, tile, pt0, n, n1);
+    store_tile<OutT>(p, tile, pt0, n, n1);
     __syncthreads();  // the tile is free
   }
 }
 
-const void* pick(int nfx) {
-  return nfx == 8 ? reinterpret_cast<const void*>(tail_kernel<8>)
-                  : reinterpret_cast<const void*>(tail_kernel<0>);
+const void* pick(int nfx, int bf16) {
+  if (bf16)
+    return nfx == 8 ? reinterpret_cast<const void*>(tail_kernel<8, __nv_bfloat16>)
+                    : reinterpret_cast<const void*>(tail_kernel<0, __nv_bfloat16>);
+  return nfx == 8 ? reinterpret_cast<const void*>(tail_kernel<8, float>)
+                  : reinterpret_cast<const void*>(tail_kernel<0, float>);
 }
 
 }  // namespace
@@ -251,9 +314,9 @@ extern "C" {
 int fused_tail_smem_bytes(int nfx) { return smem_bytes(nfx); }
 
 // K5 blocks the card holds at once (its SMs times the blocks an SM holds),
-// or -(cudaError_t) on failure.
-int fused_tail_slots(int nfx, int device) {
-  const void* kernel = pick(nfx);
+// or -(cudaError_t) on failure; bf16: the bfloat16-output kernel.
+int fused_tail_slots(int nfx, int bf16, int device) {
+  const void* kernel = pick(nfx, bf16);
   const int smem = smem_bytes(nfx);
   int sms = 0, per_sm = 0;
   cudaError_t err = cudaFuncSetAttribute(
@@ -267,9 +330,9 @@ int fused_tail_slots(int nfx, int device) {
   return sms * per_sm;
 }
 
-// Launches K5 on `stream` (center and rot may be null); returns the
-// cudaError_t of the launch.
-int fused_tail_launch(const float* z, float* out, const float* factors,
+// Launches K5 on `stream` (center and rot may be null); out is float, or
+// __nv_bfloat16 with bf16 != 0.  Returns the cudaError_t of the launch.
+int fused_tail_launch(int bf16, const float* z, void* out, const float* factors,
                       const float* means, const float* center, const float* bx,
                       const float* rot, int nfx, long long np, int nsteps,
                       int chunk, void* stream) {
@@ -293,7 +356,7 @@ int fused_tail_launch(const float* z, float* out, const float* factors,
   p.nsteps = nsteps;
   p.num_slabs = nsteps + 2 * nfx;
   p.chunk = chunk;
-  const void* kernel = pick(nfx);
+  const void* kernel = pick(nfx, bf16);
   const int smem = smem_bytes(nfx);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

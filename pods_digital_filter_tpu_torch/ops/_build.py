@@ -160,9 +160,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fused_temporal_launch.restype = c_int
     lib.fused_tail_smem_bytes.argtypes = [c_int]
     lib.fused_tail_smem_bytes.restype = c_int
-    lib.fused_tail_slots.argtypes = [c_int, c_int]
+    lib.fused_tail_slots.argtypes = [c_int, c_int, c_int]
     lib.fused_tail_slots.restype = c_int
     lib.fused_tail_launch.argtypes = [
+        c_int,                                   # bf16 out
         c_void_p, c_void_p, c_void_p, c_void_p,  # z, out, factors, means
         c_void_p, c_void_p, c_void_p,            # center, bx, rotation
         c_int, ctypes.c_longlong, c_int,         # nfx, points, nsteps

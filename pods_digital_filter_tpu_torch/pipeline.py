@@ -11,7 +11,7 @@ out of core.
 hold the filter taps, the stress and mean fields, the rotation and an
 optional centre.  With ``cfg.use_pallas`` the noise draw and spatial
 filter run in the fused CUDA kernel (:mod:`.ops.fused_filter`), and in
-float32 the rest of the generation in the tail kernel
+float32 or bfloat16 the rest of the generation in the tail kernel
 (:mod:`.ops.fused_tail`).
 """
 
@@ -120,8 +120,9 @@ class InletGenerator(torch.nn.Module):
     ``use_fused`` selects the fused CUDA kernel for noise + spatial filter
     (Philox stream; bfloat16 taps when ``dtype`` is bfloat16, else float32,
     as the original's ``matmul_dtype``, ``pipeline.py:164-165``) and, in
-    float32, the tail kernel for FIR -> Lund -> pack -> rotate -> centre
-    (:func:`.ops.fused_tail.fused_tail`, its plain chain on the CPU);
+    float32 or bfloat16, the tail kernel for FIR -> Lund -> pack -> rotate
+    -> centre (:func:`.ops.fused_tail.fused_tail`, its plain chain on the
+    CPU);
     otherwise the stages are torch products in ``dtype`` on a
     ``torch.Generator`` stream."""
 
@@ -184,7 +185,7 @@ class InletGenerator(torch.nn.Module):
                                            self.kma, self.by, self.bz, 3, noise,
                                            self.matmul_dtype)
             noise = None
-            if self.dtype == torch.float32:
+            if self.dtype in fused_tail.DTYPES:
                 # the slabs and the block are the only block-sized tensors
                 # (streaming.gram_pass_hbm_estimate's fused_tail term)
                 return fused_tail.fused_tail(z, self.bx, self.stresses,

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from pods_digital_filter_tpu_torch.device import resolve_device, synchronize
+from pods_digital_filter_tpu_torch.ops import fused_tail as tail_ops
 from pods_digital_filter_tpu_torch.ops import pod as pod_ops
 from pods_digital_filter_tpu_torch.pipeline import _DTYPES, make_generator
 from pods_digital_filter_tpu_torch.utils import timing
@@ -315,9 +316,9 @@ def gram_pass_hbm_estimate(np3: int, block: int, group: int, itemsize: int,
     * the regenerated column block (one more);
     * the generation transients of the column block: the filtered-slab
       tensor (``block + 2*nfx`` time slabs, the temporal-FIR input) and the
-      FIR output block; with ``fused_tail`` (the generator's float32
-      ``--pallas`` route, :func:`.ops.fused_tail.fused_tail`) the slabs
-      only, since the tail kernel writes the column block itself;
+      FIR output block; with ``fused_tail`` (the generator's float32 and
+      bfloat16 ``--pallas`` routes, :func:`.ops.fused_tail.fused_tail`)
+      the slabs only, since the tail kernel writes the column block itself;
     * when ``ns`` is given, the ``(ns, ns)`` Gram accumulator plus two
       strip-sized buffers of ``group * block * ns`` elements."""
     blk = np3 * block * itemsize
@@ -476,7 +477,8 @@ def streaming_pod(
 
     _warn_gram_hbm(np3, block, getattr(cfg, "gram_group", 1), itemsize,
                    filt.nfx, ns, budget=device_memory_budget(dev),
-                   fused_tail=cfg.use_pallas and cfg.dtype == "float32")
+                   fused_tail=(cfg.use_pallas and
+                               _DTYPES[cfg.dtype] in tail_ops.DTYPES))
 
     # the ragged final block generates a full window and keeps the first
     # ns-t0 columns (the same values: the stream is counter-indexed)

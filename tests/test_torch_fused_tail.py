@@ -1,10 +1,11 @@
 """K5, the generation tail after K1 (ops/fused_tail.py), on the CPU where
 the wrapper takes its plain version: that version is the chain the
 generator ran before (filter_temporal -> apply_lund_stacked -> pack ->
-apply_rotation_packed -> minus centre), bit for bit; the wrapper refuses
-what the kernel does not take; the generator routes its float32 ``--pallas``
-tail through it and nothing else; and the Gram pass's memory estimate
-counts the route's transients.  The CUDA kernel is checked against the
+apply_rotation_packed -> minus centre), bit for bit, in float32 and in
+bfloat16 (the FIR in float32, rounded, the rest in bf16); the wrapper
+refuses what the kernel does not take; the generator routes its float32 and
+bfloat16 ``--pallas`` tails through it and nothing else; and the Gram pass's
+memory estimate counts the route's transients.  The CUDA kernel is checked against the
 plain version on the card by chip_smoke.py."""
 
 import numpy as np
@@ -49,6 +50,25 @@ def _chain(z, bx, stresses, means, rot, center):
     return A
 
 
+def _chain_bf16(z, bx, stresses, means, rot, center):
+    """The generator's bfloat16 tail as it was composed before the tail
+    kernel took it: the dense FIR in float32, rounded to bf16, then Lund,
+    pack, rotation and centre in bf16."""
+    y = filters.filter_temporal(z, bx, axis=-3).to(torch.bfloat16)
+    colored = lund.apply_lund_stacked(y, stresses, means)
+    c, ns, jma, kma = colored.shape
+    A = colored.permute(0, 2, 3, 1).reshape(c * jma * kma, ns)
+    if rot is not None:
+        A = rotation.apply_rotation_packed(A, rot)
+    if center is not None:
+        A = A - center[:, None]
+    return A
+
+
+def _bf16(*tensors):
+    return [None if t is None else t.to(torch.bfloat16) for t in tensors]
+
+
 @pytest.mark.parametrize("shape", sorted(SHAPES))
 @pytest.mark.parametrize("nfx", [1, 8])
 @pytest.mark.parametrize("rotate", [False, True])
@@ -67,6 +87,32 @@ def test_plain_route_is_the_chain(shape, nfx, rotate, centre):
     assert fused_tail.LAUNCHES == before
 
 
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("nfx", [1, 8])
+@pytest.mark.parametrize("rotate", [False, True])
+@pytest.mark.parametrize("centre", [False, True])
+def test_plain_bf16_route_is_the_old_bf16_chain(shape, nfx, rotate, centre):
+    """Given bf16 Lund fields, rotation and centre, the CPU route returns a
+    bf16 block equal bit for bit to the chain the generator ran in bf16,
+    and launches nothing."""
+    nsteps, jma, kma = SHAPES[shape]
+    z, bx, stresses, means, rot, center = _inputs(nfx, nsteps, jma, kma)
+    stresses, means, rot, center = _bf16(stresses, means, rot, center)
+    rot, center = (rot if rotate else None), (center if centre else None)
+    before = fused_tail.LAUNCHES
+    got = fused_tail.fused_tail(z, bx, stresses, means, rot, center)
+    want = _chain_bf16(z, bx, stresses, means, rot, center)
+    assert got.shape == (3 * jma * kma, nsteps)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+    # bf16 rounding is visible: the float32 route gives another block
+    f32 = fused_tail.fused_tail(z, bx, stresses.float(), means.float(),
+                                None if rot is None else rot.float(),
+                                None if center is None else center.float())
+    assert not torch.equal(got.float(), f32)
+    assert fused_tail.LAUNCHES == before
+
+
 def test_plain_route_counts_no_launch():
     """The counter ``fused_tail.launches`` counts launches only: the plain
     route, even while a profiler records, adds nothing."""
@@ -74,7 +120,9 @@ def test_plain_route_counts_no_launch():
     timing.reset_counts()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         fused_tail.fused_tail(z, bx, stresses, means, rot, center)
+        fused_tail.fused_tail(z, bx, *_bf16(stresses, means, rot, center))
     assert "fused_tail.launches" not in timing.counts()
+    assert "fused_tail.bf16_launches" not in timing.counts()
 
 
 def _bad(case):
@@ -114,14 +162,46 @@ def test_wrapper_refuses(case, match):
     assert fused_tail.LAUNCHES == before
 
 
+@pytest.mark.parametrize("case,match", [
+    ("means", "means must be bfloat16, not torch.float32"),
+    ("rotation", "rotation must be bfloat16, not torch.float32"),
+    ("center", "center must be bfloat16, not torch.float32"),
+    ("f32 stresses", "means must be float32, not torch.bfloat16"),
+    ("z", "z must be float32, not torch.bfloat16"),
+    ("bx", "bx must be float32, not torch.bfloat16"),
+    ("half", "stresses must be float32 or bfloat16, not torch.float16")])
+def test_wrapper_refuses_mixed_types(case, match):
+    """The Lund fields, rotation and centre share the type of the block;
+    the slabs and the taps stay float32 on both routes; float16 is no
+    block type of the kernel."""
+    z, bx, stresses, means, rot, center = _inputs(2, 8, 4, 6)
+    args = dict(z=z, bx=bx, **dict(zip(
+        ("stresses", "means", "rotation", "center"),
+        _bf16(stresses, means, rot, center))))
+    if case == "f32 stresses":
+        args["stresses"] = stresses
+    elif case == "half":
+        args.update(stresses=stresses.half(), means=means.half(),
+                    rotation=rot.half(), center=center.half())
+    elif case in ("z", "bx"):
+        args[case] = args[case].to(torch.bfloat16)
+    else:
+        args[case] = dict(means=means, rotation=rot, center=center)[case]
+    before = fused_tail.LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        fused_tail.fused_tail(**args)
+    assert fused_tail.LAUNCHES == before
+
+
 @pytest.mark.parametrize("dtype,use_fused,takes", [
-    ("float32", True, True), ("bfloat16", True, False),
+    ("float32", True, True), ("bfloat16", True, True),
     ("float64", False, False), ("float32", False, False)])
 def test_generator_takes_the_tail_where_it_should(monkeypatch, dtype,
                                                   use_fused, takes):
     """``InletGenerator`` hands K1's slabs to the tail kernel's wrapper on
-    the float32 ``--pallas`` route only (on the CPU its plain chain), and
-    both routes give the chain's result."""
+    the float32 and bfloat16 ``--pallas`` routes only (on the CPU its plain
+    chain), and both routes give the chain's result in the generator's
+    type."""
     torch_dtype = getattr(torch, dtype)
     jma, kma, nsteps, nf = 6, 5, 9, 2
     rng = np.random.default_rng(3)
@@ -150,9 +230,11 @@ def test_generator_takes_the_tail_where_it_should(monkeypatch, dtype,
         from pods_digital_filter_tpu_torch.ops import fused_filter
 
         z = fused_filter.fused_spatial(7, 4, nsteps + 2 * nf, jma, kma,
-                                       gen.by, gen.bz, 3)
-        want = _chain(z, gen.bx, gen.stresses, gen.means, gen.rotation,
-                      gen.center)
+                                       gen.by, gen.bz, 3, None,
+                                       gen.matmul_dtype)
+        chain = _chain_bf16 if torch_dtype == torch.bfloat16 else _chain
+        want = chain(z, gen.bx, gen.stresses, gen.means, gen.rotation,
+                     gen.center)
         assert torch.equal(got, want)
 
 
